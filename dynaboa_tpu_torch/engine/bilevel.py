@@ -1,0 +1,404 @@
+"""Dynamic bilevel online adaptation, one frame per ``step`` (counterpart of
+``dynaboa_tpu/engine/bilevel.py``).
+
+Per frame:
+
+  1. no-grad forward -> the initial feature taps
+  2. inner (lower-level) step(s), first-order MAML: the clone is
+     ``params - fastlr * grad(L_lower)(params)``
+  3. outer (upper-level) Adam updates on the real params.  Update 0 takes
+     its gradient at the inner-adapted clone, every later update at the real
+     params; each update is followed by the teacher EMA and a post-update
+     forward, whose tap-12 cosine against the previous forward gates the
+     next update (at most ``1 + optim_steps``).  The gate reads the cosine on
+     the host once per update.
+  4. SMPL decode of the last forward + MPJPE / PA-MPJPE / PVE
+  5. history-ring write
+
+The current frame, the history frame and the retrieved exemplar run as one
+batch through the backbone.  Update 0 retrieves with the pre-inner features
+(docs/PARITY.md divergence 1), like the JAX engine.  With
+``cfg.use_pallas_lbs`` the no-grad SMPL decodes (lower-level record,
+per-update records, final prediction) run through the Hopper skinning kernel;
+the decodes inside the losses stay on the eager autograd path.
+
+The state is updated in place: ``step`` returns the same ``AdaptState`` it
+was given.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import torch
+from torch.func import functional_call
+
+from dynaboa_tpu.config import AdaptConfig
+from dynaboa_tpu_torch.engine.retrieval import RetrievalStore, retrieve
+from dynaboa_tpu_torch.kernels.lbs import LBSKernelSMPL
+from dynaboa_tpu_torch.losses.adaptation import (
+    feature_cosine_similarities, frame_loss, labeled_loss, motion_loss,
+    teacher_loss)
+from dynaboa_tpu_torch.losses.priors import GMMPrior
+from dynaboa_tpu_torch.metrics.eval import (GenderedSMPL, evaluate_pred,
+                                            gt_targets)
+from dynaboa_tpu_torch.models.hmr import HMR
+from dynaboa_tpu_torch.models.smpl import smpl_forward
+from dynaboa_tpu_torch.ops.camera import project_to_crop
+
+
+class Frame(NamedTuple):
+    """One preprocessed frame, batch dim kept; tensors on the engine's
+    device."""
+
+    image: torch.Tensor    # (B, H, W, 3) normalized NHWC
+    j2d: torch.Tensor      # (B, 49, 3) normalized keypoints + conf
+    pose: torch.Tensor     # (B, 72) GT SMPL pose (zeros when unlabeled)
+    betas: torch.Tensor    # (B, 10) GT shape
+    gender: torch.Tensor   # (B,) int: 0 male / 1 female
+    mask: Any = None       # (B,) row validity; None means all valid
+
+
+@dataclass
+class AdaptState:
+    """Everything that evolves across the stream."""
+
+    params: dict            # name -> leaf tensor (requires grad)
+    teacher_params: dict    # name -> tensor
+    optimizer: torch.optim.Adam
+    hist_images: torch.Tensor   # (interval, B, H, W, 3) ring buffer
+    hist_j2d: torch.Tensor      # (interval, B, 49, 3)
+    step: int
+    rng: torch.Generator
+
+
+class BilevelEngine:
+    def __init__(self, cfg: AdaptConfig, model: HMR, prior: GMMPrior,
+                 smpls: GenderedSMPL, store: RetrievalStore | None = None):
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port runs "
+                "float32 only")
+        if cfg.fast_extra_updates or cfg.probe_res_factor != 1:
+            raise NotImplementedError(
+                "fast_extra_updates / probe_res_factor are not ported")
+        if cfg.keypoint_source != "gt":
+            raise NotImplementedError(
+                "keypoint_source='openpose' (the webcam path) is not ported")
+        if cfg.mixtrain and store is None:
+            raise ValueError("mixtrain requires a RetrievalStore")
+        self.cfg = cfg
+        # the reference adapts in eval mode: dropout off
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.prior = prior
+        self.smpls = smpls
+        self.store = store
+        self._lbs_kernel = (LBSKernelSMPL(smpls.neutral)
+                            if cfg.use_pallas_lbs else None)
+
+    # -- model wrappers ------------------------------------------------------
+
+    def _forward(self, params: dict, image: torch.Tensor):
+        """NHWC image -> (rotmat, shape, cam, 15 taps); the NCHW view of an
+        NHWC tensor is channels_last, so no copy is made."""
+        return functional_call(self.model, params, (image.permute(0, 3, 1, 2),))
+
+    def _decode(self, rotmat, shape, no_grad: bool = False):
+        """SMPL decode; ``no_grad=True`` marks call sites outside gradient
+        computations, where the skinning kernel (no backward) may serve."""
+        lbs_fn = self._lbs_kernel if no_grad else None
+        out = smpl_forward(self.smpls.neutral, shape, rotmat, lbs_fn=lbs_fn)
+        return out.joints, out.vertices
+
+    @torch.no_grad()
+    def predict(self, params, image):
+        """Plain inference: image -> dict(rotmat, shape, cam, s3d, verts,
+        s2d, feats)."""
+        rotmat, shape, cam, feats = self._forward(params, image)
+        s3d, verts = self._decode(rotmat, shape, no_grad=True)
+        s2d = project_to_crop(cam, s3d)["normed"]
+        return dict(rotmat=rotmat, shape=shape, cam=cam, s3d=s3d,
+                    verts=verts, s2d=s2d, feats=feats)
+
+    # -- losses --------------------------------------------------------------
+
+    def _teacher_active(self, level: str) -> bool:
+        use_temporal = (self.cfg.use_temporal_losses_lower if level == "lower"
+                        else self.cfg.use_temporal_losses_upper)
+        return use_temporal and self.cfg.use_meanteacher
+
+    @torch.no_grad()
+    def _teacher_outs(self, teacher_params, frame: Frame):
+        t_rotmat, t_shape, t_cam, _ = self._forward(teacher_params, frame.image)
+        t_s3d, _ = self._decode(t_rotmat, t_shape)
+        t_s2d = project_to_crop(t_cam, t_s3d)["normed"]
+        return (t_rotmat, t_shape, t_s2d, t_s3d)
+
+    def _partial_level(self, params, frame: Frame, state: AdaptState, bank,
+                       level: str):
+        """Lower/upper loss without the teacher term: the frame, history and
+        exemplar rows in one batched forward."""
+        cfg = self.cfg
+        use_frame = (cfg.use_frame_losses_lower if level == "lower"
+                     else cfg.use_frame_losses_upper)
+        use_temporal = (cfg.use_temporal_losses_lower if level == "lower"
+                        else cfg.use_temporal_losses_upper)
+        use_mixtrain = (cfg.lower_level_mixtrain if level == "lower"
+                        else cfg.upper_level_mixtrain)
+        use_motion = use_temporal and cfg.use_motion
+
+        B = frame.image.shape[0]
+        imgs = [frame.image]
+        slot = state.step % cfg.interval
+        if use_motion:
+            imgs.append(state.hist_images[slot])
+        n_ex = 0
+        if use_mixtrain:
+            imgs.append(bank.images)
+            n_ex = bank.images.shape[0]
+        x = torch.cat(imgs, dim=0) if len(imgs) > 1 else imgs[0]
+
+        rotmat, shape, cam, feats_all = self._forward(params, x)
+        s3d, _ = self._decode(rotmat, shape)
+        s2d = project_to_crop(cam, s3d)["normed"]
+
+        fr = slice(0, B)
+        hi = slice(B, 2 * B)
+        ex = slice(x.shape[0] - n_ex, x.shape[0])
+        feats = tuple(f[fr] for f in feats_all)
+
+        aux: dict[str, torch.Tensor] = {}
+        loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        if use_frame:
+            loss, parts = frame_loss(
+                self.prior, s2d[fr], rotmat[fr], shape[fr], frame.j2d,
+                cfg.s2dloss_weight, cfg.shape_prior_weight,
+                cfg.pose_prior_weight, frame.mask)
+            aux.update(parts)
+            aux["unlabelloss"] = loss
+        if use_motion:
+            # over the 24 GT joints; always computed, masked until
+            # step > interval
+            ksl = slice(25, None)
+            hist_j2d = state.hist_j2d[slot]
+            ml = motion_loss(s2d[fr][:, ksl], frame.j2d[:, ksl],
+                             s2d[hi][:, ksl], hist_j2d[:, ksl], frame.mask)
+            active = float(state.step > cfg.interval)
+            loss = loss + ml * active * cfg.motionloss_weight
+            aux["motion_loss"] = ml * active
+        if use_mixtrain:
+            ll, lparts = labeled_loss(
+                rotmat[ex], shape[ex], s2d[ex], s3d[ex],
+                bank.pose, bank.betas, bank.keypoints, bank.pose_3d)
+            loss = loss + ll * cfg.labelloss_weight
+            aux["labledloss"] = ll
+            aux.update(lparts)
+        touts = (rotmat[fr], shape[fr], s2d[fr], s3d[fr])
+        return loss, touts, feats, aux
+
+    def _level_loss(self, params, frame, state, bank, level,
+                    teacher_params=None):
+        """Full loss at one level: partial terms + teacher distillation."""
+        loss, touts, feats, aux = self._partial_level(params, frame, state,
+                                                      bank, level)
+        if self._teacher_active(level):
+            t_out = self._teacher_outs(
+                state.teacher_params if teacher_params is None
+                else teacher_params, frame)
+            tl, tparts = teacher_loss(*touts, *t_out, row_w=frame.mask)
+            loss = loss + tl * self.cfg.teacherloss_weight
+            aux["teacherloss"] = tl
+            aux.update({f"teacher_{k}": v for k, v in tparts.items()})
+        return loss, feats, aux
+
+    def _value_and_grad(self, params, frame, state, bank, level,
+                        teacher_params=None):
+        loss, feats, aux = self._level_loss(params, frame, state, bank, level,
+                                            teacher_params)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return (loss.detach(), tuple(f.detach() for f in feats),
+                {k: v.detach() for k, v in aux.items()}, grads)
+
+    def _retrieve(self, feat5, rng):
+        cfg = self.cfg
+        if not cfg.mixtrain:
+            return None
+        if cfg.retrieval:
+            return retrieve(self.store, feat5, rng, cfg.sample_num)
+        return self.store.bank.take(slice(0, cfg.sample_num))
+
+    # -- optimizer -----------------------------------------------------------
+
+    @staticmethod
+    def _outer_update(grads, state: AdaptState):
+        for p, g in zip(state.params.values(), grads):
+            p.grad = g
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def _ema_teacher(self, state: AdaptState):
+        """teacher = alpha * teacher + (1 - alpha) * student, in place."""
+        a = self.cfg.alpha
+        teacher = list(state.teacher_params.values())
+        torch._foreach_mul_(teacher, a)
+        torch._foreach_add_(teacher, list(state.params.values()), alpha=1.0 - a)
+
+    @torch.no_grad()
+    def _metrics(self, verts, targets):
+        return evaluate_pred(self.smpls, verts, targets)
+
+    # -- the per-frame step --------------------------------------------------
+
+    def step(self, state: AdaptState, frame: Frame, cos_sim_threshold=None):
+        """Adapt on one frame and predict; returns ``(state, outputs)`` with
+        ``state`` updated in place."""
+        cfg = self.cfg
+        thr = (cfg.cos_sim_threshold if cos_sim_threshold is None
+               else float(cos_sim_threshold))
+        outputs: dict[str, Any] = {}
+
+        # prediction-independent GT targets, shared by every evaluation
+        with torch.no_grad():
+            eval_targets = gt_targets(self.smpls, frame.pose, frame.betas,
+                                      frame.gender)
+
+        if cfg.use_boa:
+            with torch.no_grad():
+                rotmat0, shape0, cam0, init_feats = self._forward(
+                    state.params, frame.image)
+
+            # inner step(s) on the clone; inner step 0 retrieves off the
+            # pre-adaptation features
+            learner = state.params
+            lower_aux: dict = {}
+            prev5 = init_feats[5][0]
+            for i in range(cfg.inner_step):
+                bank = self._retrieve(prev5, state.rng)
+                ll, lfeats, lower_aux, g = self._value_and_grad(
+                    learner, frame, state, bank, "lower")
+                with torch.no_grad():
+                    learner = {k: p - cfg.fastlr * gg
+                               for (k, p), gg in zip(learner.items(), g)}
+                for p in learner.values():
+                    p.requires_grad_(True)
+                lower_aux["loss"] = ll
+                prev5 = lfeats[5][0]
+                if cfg.record_lowerlevel:
+                    pred = self.predict(learner, frame.image)
+                    m = self._metrics(pred["verts"], eval_targets)
+                    outputs[f"lower_{i}_mpjpe"] = m["mpjpe"]
+                    outputs[f"lower_{i}_pampjpe"] = m["pampjpe"]
+            outputs["lower"] = lower_aux
+
+            max_updates = 1 + (cfg.optim_steps if cfg.dynamic_boa else 0)
+            B = frame.image.shape[0]
+            dev = frame.image.device
+            sims = torch.zeros((max_updates,), device=dev)
+            losses = torch.zeros((max_updates,), device=dev)
+            recs = (torch.zeros((3, max_updates, B), device=dev)
+                    if cfg.record_dynamic else None)
+            pred_c = (rotmat0, shape0, cam0, init_feats)
+            upper_aux: dict = {}
+            sim = None
+            n = 0
+            while n < max_updates and (n == 0 or bool((1.0 - sim) > thr)):
+                # update 0 retrieves off the carried pre-inner features
+                bank = self._retrieve(pred_c[3][5][0], state.rng)
+                eval_params = learner if n == 0 else state.params
+                ul, _, aux, g = self._value_and_grad(
+                    eval_params, frame, state, bank, "upper",
+                    state.teacher_params)
+                aux["loss"] = ul
+                losses[n] = ul
+                self._outer_update(g, state)
+                if cfg.use_meanteacher:
+                    self._ema_teacher(state)
+                with torch.no_grad():
+                    # post-update forward: the gate signal, and the final
+                    # prediction when the loop stops here
+                    post = self._forward(state.params, frame.image)
+                    sim = feature_cosine_similarities(
+                        (pred_c[3][12],), (post[3][12],))[0]
+                    sims[n] = sim
+                    if recs is not None:
+                        _, verts_p = self._decode(post[0], post[1],
+                                                  no_grad=True)
+                        m = self._metrics(verts_p, eval_targets)
+                        for r, key in enumerate(("mpjpe", "pampjpe", "pve")):
+                            recs[r, n] = m[key]
+                if n == 0:
+                    upper_aux = aux
+                pred_c = post
+                n += 1
+            outputs["upper"] = upper_aux
+            outputs["optim_steps"] = n - 1
+            outputs["feat_sim_final"] = sim
+            outputs["per_step_sims"] = sims
+            outputs["per_step_loss"] = losses
+            if recs is not None:
+                outputs["per_step_mpjpe"] = recs[0]
+                outputs["per_step_pampjpe"] = recs[1]
+                outputs["per_step_pve"] = recs[2]
+        else:
+            # plain single-level online adaptation
+            with torch.no_grad():
+                init_feats0 = self._forward(state.params, frame.image)[3]
+            bank = self._retrieve(init_feats0[5][0], state.rng)
+            ll, _, lower_aux, g = self._value_and_grad(
+                state.params, frame, state, bank, "lower")
+            lower_aux["loss"] = ll
+            outputs["lower"] = lower_aux
+            self._outer_update(g, state)
+            if cfg.use_meanteacher:
+                self._ema_teacher(state)
+
+        with torch.no_grad():
+            if cfg.use_boa:
+                rotmat_f, shape_f, cam_f, feats_f = pred_c
+                s3d_f, verts_f = self._decode(rotmat_f, shape_f, no_grad=True)
+                pred = dict(rotmat=rotmat_f, shape=shape_f, cam=cam_f,
+                            verts=verts_f)
+                outputs["feat_sim"] = feature_cosine_similarities(init_feats,
+                                                                  feats_f)
+            else:
+                pred = self.predict(state.params, frame.image)
+            outputs.update(self._metrics(pred["verts"], eval_targets))
+            outputs["verts"] = pred["verts"]
+            outputs["rotmat"] = pred["rotmat"]
+            outputs["beta"] = pred["shape"]
+            outputs["cam"] = pred["cam"]
+
+            # ring-buffer write: the slot held frame step - interval, which
+            # the motion loss above consumed
+            slot = state.step % cfg.interval
+            state.hist_images[slot] = frame.image
+            state.hist_j2d[slot] = frame.j2d
+        state.step += 1
+        return state, outputs
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self, params: dict, batch_size: int = 1,
+                   img_res: int = 224) -> AdaptState:
+        """Fresh adaptation state from a name -> tensor parameter dict (e.g.
+        ``dict(model.named_parameters())``); student and teacher are copies."""
+        cfg = self.cfg
+        student = {k: v.detach().clone().to(self.device).requires_grad_(True)
+                   for k, v in params.items()}
+        teacher = {k: v.detach().clone().to(self.device)
+                   for k, v in params.items()}
+        optimizer = torch.optim.Adam(list(student.values()), lr=cfg.lr,
+                                     betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+        rng = torch.Generator(device=self.device)
+        rng.manual_seed(cfg.seed)
+        return AdaptState(
+            params=student, teacher_params=teacher, optimizer=optimizer,
+            hist_images=torch.zeros(
+                (cfg.interval, batch_size, img_res, img_res, 3),
+                device=self.device),
+            hist_j2d=torch.zeros((cfg.interval, batch_size, 49, 3),
+                                 device=self.device),
+            step=0, rng=rng)

@@ -1,0 +1,236 @@
+"""HMR: ResNet-50 (GroupNorm) backbone + iterative SMPL-parameter regressor,
+as a torch ``nn.Module`` (counterpart of ``dynaboa_tpu/models/hmr.py``).
+
+Parameter names are the reference checkpoint's (``conv1``, ``bn1``,
+``layerL.B.convI`` / ``bnI``, ``layerL.0.downsample.{0,1}``, ``fc1``,
+``fc2``, ``decpose``, ``decshape``, ``deccam``), so a ``basemodel.pt``
+state_dict loads directly once its ``module.`` prefix is stripped.
+
+``forward`` takes NCHW images and returns ``(rotmat (B,24,3,3), shape
+(B,10), cam (B,3), features)`` with the 15-tap feature contract:
+
+  0: conv1 output (pre-GN)      1-4: layer1..layer4 outputs (NCHW)
+  5: pooled feature xf          6+3i, 7+3i, 8+3i (i in 0..2):
+                                fc1-out, post-dropout1, fc2-out per iteration
+
+Tap 5 feeds retrieval; tap 12 is the dynamic-BOA convergence signal.  The
+SMPL mean parameters are buffers, so they are neither adapted nor in the
+parameter dict the engine differentiates.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from dynaboa_tpu_torch.ops.rotations import rot6d_to_rotmat
+
+NPOSE = 24 * 6
+_MEAN_KEYS = ("init_pose", "init_shape", "init_cam")
+
+
+def _gn(channels: int) -> nn.GroupNorm:
+    # GroupNorm(4 groups), eps 1e-5
+    return nn.GroupNorm(4, channels, eps=1e-5)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: nn.Module | None = None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = _gn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = _gn(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = _gn(planes * 4)
+        self.relu = nn.ReLU()
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return self.relu(out + residual)
+
+
+class HMR(nn.Module):
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 regressor_dim: int = 1024, n_iter: int = 3,
+                 mean_pose=None, mean_shape=None, mean_cam=None):
+        super().__init__()
+        self.layers_cfg = tuple(layers)
+        self.width = width
+        self.regressor_dim = regressor_dim
+        self.n_iter = n_iter
+        w = width
+        self.conv1 = nn.Conv2d(3, w, 7, stride=2, padding=3, bias=False)
+        self.bn1 = _gn(w)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.inplanes = w
+        self.layer1 = self._make_layer(w, layers[0], 1)
+        self.layer2 = self._make_layer(2 * w, layers[1], 2)
+        self.layer3 = self._make_layer(4 * w, layers[2], 2)
+        self.layer4 = self._make_layer(8 * w, layers[3], 2)
+        feat = 8 * w * Bottleneck.expansion
+        self.fc1 = nn.Linear(feat + NPOSE + 13, regressor_dim)
+        self.drop1 = nn.Dropout(0.5)
+        self.fc2 = nn.Linear(regressor_dim, regressor_dim)
+        self.drop2 = nn.Dropout(0.5)
+        self.decpose = nn.Linear(regressor_dim, NPOSE)
+        self.decshape = nn.Linear(regressor_dim, 10)
+        self.deccam = nn.Linear(regressor_dim, 3)
+
+        def mean(v, default):
+            a = np.asarray(default if v is None else v, np.float32)
+            return torch.as_tensor(a.reshape(1, -1))
+
+        self.register_buffer("init_pose", mean(mean_pose, np.zeros(NPOSE)))
+        self.register_buffer("init_shape", mean(mean_shape, np.zeros(10)))
+        self.register_buffer("init_cam", mean(mean_cam, [0.9, 0.0, 0.0]))
+
+    def _make_layer(self, planes: int, blocks: int, stride: int):
+        downsample = nn.Sequential(
+            nn.Conv2d(self.inplanes, planes * 4, 1, stride=stride, bias=False),
+            _gn(planes * 4))
+        mods = [Bottleneck(self.inplanes, planes, stride, downsample)]
+        self.inplanes = planes * 4
+        mods += [Bottleneck(self.inplanes, planes) for _ in range(1, blocks)]
+        return nn.Sequential(*mods)
+
+    def forward(self, x: torch.Tensor):
+        """x: (B, 3, H, W), ImageNet-normalized."""
+        B = x.shape[0]
+        features = []
+        x = self.conv1(x)
+        features.append(x)                       # tap 0: pre-GN conv1 out
+        x = self.maxpool(self.relu(self.bn1(x)))
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+            features.append(x)                   # taps 1-4
+        xf = x.mean(dim=(2, 3))
+        features.append(xf)                      # tap 5: retrieval feature
+
+        pred_pose = self.init_pose.expand(B, -1)
+        pred_shape = self.init_shape.expand(B, -1)
+        pred_cam = self.init_cam.expand(B, -1)
+        for _ in range(self.n_iter):
+            xc = torch.cat([xf, pred_pose, pred_shape, pred_cam], dim=1)
+            xc = self.fc1(xc)
+            features.append(xc)                  # tap 6 + 3i
+            xc = self.drop1(xc)
+            features.append(xc)                  # tap 7 + 3i
+            xc = self.fc2(xc)
+            features.append(xc)                  # tap 8 + 3i
+            xc = self.drop2(xc)
+            pred_pose = self.decpose(xc) + pred_pose
+            pred_shape = self.decshape(xc) + pred_shape
+            pred_cam = self.deccam(xc) + pred_cam
+
+        rotmat = rot6d_to_rotmat(pred_pose).reshape(B, 24, 3, 3)
+        return rotmat, pred_shape, pred_cam, tuple(features)
+
+
+def init_weights_(model: HMR, generator: torch.Generator) -> HMR:
+    """Seeded initialization: convs normal(0, sqrt(2 / (kh*kw*out))), the
+    decoder heads xavier-uniform with gain 0.01, GroupNorm (1, 0), and
+    fc1/fc2 keep PyTorch's default Linear scheme drawn from ``generator``."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, nn.Conv2d):
+                kh, kw = m.kernel_size
+                std = float(np.sqrt(2.0 / (kh * kw * m.out_channels)))
+                m.weight.normal_(0.0, std, generator=generator)
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                fan_in, fan_out = m.in_features, m.out_features
+                if name in ("decpose", "decshape", "deccam"):
+                    bound = 0.01 * float(np.sqrt(6.0 / (fan_in + fan_out)))
+                    m.weight.uniform_(-bound, bound, generator=generator)
+                    m.bias.zero_()
+                else:
+                    bound = 1.0 / float(np.sqrt(fan_in))
+                    m.weight.uniform_(-bound, bound, generator=generator)
+                    m.bias.uniform_(-bound, bound, generator=generator)
+    return model
+
+
+def hmr(mean_params_path: str | None = None, **kwargs) -> HMR:
+    """ResNet-50 HMR, seeding the regressor from smpl_mean_params.npz when
+    a path is given."""
+    if mean_params_path:
+        mp = np.load(mean_params_path)
+        kwargs.setdefault("mean_pose", mp["pose"])
+        kwargs.setdefault("mean_shape", mp["shape"])
+        kwargs.setdefault("mean_cam", mp["cam"])
+    return HMR(**kwargs)
+
+
+def load_basemodel(path: str, device) -> HMR:
+    """Load the reference ``basemodel.pt`` (a ``model`` key holding a
+    possibly ``module.``-prefixed HMR state_dict).  The topology is read
+    from the state_dict itself."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state = {k.replace("module.", ""): v
+             for k, v in ckpt.get("model", ckpt).items()}
+    layers = tuple(1 + max(int(k.split(".")[1]) for k in state
+                           if k.startswith(f"layer{i}."))
+                   for i in (1, 2, 3, 4))
+    model = HMR(layers=layers,
+                width=int(state["conv1.weight"].shape[0]),
+                regressor_dim=int(state["fc1.weight"].shape[0]))
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    missing = [k for k in missing if k not in _MEAN_KEYS]
+    if missing or unexpected:
+        raise KeyError(f"{path}: missing {missing}, unexpected {unexpected}")
+    return model.to(device)
+
+
+def params_from_jax(flax_params: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's HMR param pytree -> this module's state_dict.
+
+    The exact inverse of ``dynaboa_tpu.models.hmr.convert_torch_state_dict``
+    (unscanned layout): conv HWIO -> OIHW, Dense (in, out) -> (out, in),
+    GroupNorm ``scale`` -> ``weight``.  Leaves may be numpy or jax arrays;
+    the result holds CPU float32 tensors.
+    """
+    sd: dict[str, torch.Tensor] = {}
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32))
+
+    def conv(src, dst):
+        sd[f"{dst}.weight"] = t(np.transpose(np.asarray(src["kernel"]),
+                                             (3, 2, 0, 1)))
+
+    def gn(src, dst):
+        sd[f"{dst}.weight"] = t(src["scale"])
+        sd[f"{dst}.bias"] = t(src["bias"])
+
+    conv(flax_params["conv1"], "conv1")
+    gn(flax_params["gn1"], "bn1")
+    for li in (1, 2, 3, 4):
+        blocks = sorted(int(k.split("_")[1]) for k in flax_params
+                        if k.startswith(f"layer{li}_"))
+        for b in blocks:
+            src, dst = flax_params[f"layer{li}_{b}"], f"layer{li}.{b}"
+            for i in (1, 2, 3):
+                conv(src[f"conv{i}"], f"{dst}.conv{i}")
+                gn(src[f"gn{i}"], f"{dst}.bn{i}")
+            if "down_conv" in src:
+                conv(src["down_conv"], f"{dst}.downsample.0")
+                gn(src["down_gn"], f"{dst}.downsample.1")
+    for name in ("fc1", "fc2", "decpose", "decshape", "deccam"):
+        sd[f"{name}.weight"] = t(np.asarray(flax_params[name]["kernel"]).T)
+        sd[f"{name}.bias"] = t(flax_params[name]["bias"])
+    return sd
