@@ -7,16 +7,27 @@ Phases, each of which raises (non-zero exit) on failure:
   0. the card: name and power limit from nvidia-smi
   1. build the Hopper skinning kernel from dynaboa_tpu_torch/csrc with nvcc
   2. the kernel against its plain PyTorch version at full SMPL size
-     (V = 6890), N = 1 and 3, identity and random poses; times at N = 1
+     (V = 6890), N = 1, 3 and 8, identity and random poses; times at N = 1
+     (the per-frame path) and N = 8 (the window batch)
   3. the main path: the port's 3DPW benchmark CLI, 8 synthetic frames of
      per-frame dynamic bilevel adaptation at full width (ResNet-50-GN,
      224^2, V = 6890) with the skinning kernel on; the kernel's launch count
      over that run must reach the frame count
   4. the same CLI at a tiny size on the card and on the CPU from the same
      seed, every update taken: step counts, losses and metrics must agree
+  5. the windowed path at full width: 20 frames in windows of 8 (the last
+     one a masked 4-frame tail), a chunk of 2 windows, fused on-device
+     preprocessing, a periodic and a final checkpoint; the kernel runs at
+     N = 8
+  6. resume on the card at full width: 12 frames at W = 4 uninterrupted
+     against 8 frames, a checkpoint and a resumed run over the last 4
+  7. the internet app at full width on 4 synthetic frames: predictions are
+     written, no metric is computed
 
-The line before the last is a JSON object describing every kernel of the
-path; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
+Phases 3, 5, 6 and 7 each set the kernel's launch count to 0 just before
+they drive their path and read it just after; each must launch it.  The
+line before the last is a JSON object describing every kernel of the
+paths; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
 the script exits non-zero and prints no result.
 """
 
@@ -33,6 +44,10 @@ import tempfile
 import time
 
 N_FRAMES = 8
+WINDOW = 8
+WINDOW_FRAMES = 20      # 2 full windows + a masked 4-frame tail
+RESUME_W = 4
+RESUME_FRAMES, RESUME_STOP = 12, 8
 KERNEL_ATOL = 1e-5     # fp32, different summation order over 207 + 24 terms
 KERNEL_RTOL = 1e-5
 LOSS_RTOL = 2e-3       # the port's CPU/JAX parity tolerance for losses
@@ -108,7 +123,8 @@ def kernel_phase(torch, dev):
 
     max_err = 0.0
     with torch.no_grad():
-        for n, identity in ((1, True), (1, False), (3, False), (3, True)):
+        for n, identity in ((1, True), (1, False), (3, False), (3, True),
+                            (8, False), (8, True)):
             betas, rot = inputs(n, identity)
             before = klbs.skin.launches
             verts, joints = sk(betas, rot)
@@ -130,26 +146,28 @@ def kernel_phase(torch, dev):
             print(f"kernel vs plain N={n} identity={identity}: max abs err "
                   f"{err:.3e}", flush=True)
 
-        # times at the main path's shape (N = 1), hot and cold L2
-        args = plain_args(*inputs(1, False))
+        # times at the per-frame path's shape (N = 1) and the window
+        # batch's (N = 8), hot and cold L2
         scrub = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
 
         def flush():
             scrub.zero_()
 
         times = {}
-        for label, fl in (("hot", None), ("cold", flush)):
-            # plain, kernel, kernel, plain: both see the same conditions
-            p1 = time_cuda(lambda: klbs.skin_plain(*args), flush=fl)
-            k1 = time_cuda(lambda: klbs.skin(*args), flush=fl)
-            k2 = time_cuda(lambda: klbs.skin(*args), flush=fl)
-            p2 = time_cuda(lambda: klbs.skin_plain(*args), flush=fl)
-            times[label] = (min(k1, k2), min(p1, p2))
-            print(f"lbs_skin N=1 {label} L2: kernel {times[label][0] * 1e3:.2f}"
-                  f" us  plain {times[label][1] * 1e3:.2f} us "
-                  f"(device time: median of 200 CUDA-event timings, better of 2 "
-                  f"rounds)",
-                  flush=True)
+        for n in (1, WINDOW):
+            args = plain_args(*inputs(n, False))
+            for label, fl in (("hot", None), ("cold", flush)):
+                # plain, kernel, kernel, plain: both see the same conditions
+                p1 = time_cuda(lambda: klbs.skin_plain(*args), flush=fl)
+                k1 = time_cuda(lambda: klbs.skin(*args), flush=fl)
+                k2 = time_cuda(lambda: klbs.skin(*args), flush=fl)
+                p2 = time_cuda(lambda: klbs.skin_plain(*args), flush=fl)
+                times[n, label] = (min(k1, k2), min(p1, p2))
+                print(f"lbs_skin N={n} {label} L2: kernel "
+                      f"{times[n, label][0] * 1e3:.2f} us  plain "
+                      f"{times[n, label][1] * 1e3:.2f} us (device time: "
+                      f"median of 200 CUDA-event timings, better of 2 "
+                      f"rounds)", flush=True)
         torch.cuda.synchronize()
     return max_err, times
 
@@ -234,6 +252,178 @@ def cross_device_phase(tmp):
           f"{cpu_upper[-1]} cuda {gpu_upper[-1]})", flush=True)
 
 
+def check_summary(summary, frames: int, steps: int, metrics: bool = True):
+    if summary["param_devices"] != ["cuda:0"]:
+        raise RuntimeError(f"engine params on {summary['param_devices']}")
+    if summary["frames"] != frames:
+        raise RuntimeError(f"{summary['frames']} frames recorded, expected "
+                           f"{frames}")
+    if summary["engine_steps"] != steps:
+        raise RuntimeError(f"{summary['engine_steps']} engine steps, "
+                           f"expected {steps}")
+    for k in ("mpjpe", "pampjpe", "pve"):
+        if metrics and not math.isfinite(summary[k]):
+            raise RuntimeError(f"{k} = {summary[k]}")
+
+
+def windowed_phase(torch, tmp):
+    """20 frames, windows of 8, chunks of 2 windows, fused preprocessing
+    and periodic checkpoints, at full width with the kernel on."""
+    from dynaboa_tpu_torch.apps import benchmark
+    from dynaboa_tpu_torch.apps.common import build_system
+    from dynaboa_tpu_torch.engine.checkpoint import load_state
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    argv = ["--device", "cuda", "--synthetic", str(WINDOW_FRAMES),
+            "--window_size", str(WINDOW), "--chunk_size", "2",
+            "--fused_preprocess", "1", "--use_pallas_lbs", "1",
+            # every 2 windows: a checkpoint flushes the pending windows, so
+            # a cadence of one window would never let a chunk of 2 form
+            "--checkpoint_every", str(2 * WINDOW),
+            "--expdir", os.path.join(tmp, "exps"), "--expname", "window"]
+    steps = -(-WINDOW_FRAMES // WINDOW)
+    klbs.skin.launches = 0
+    t0 = time.perf_counter()
+    summary = benchmark.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = klbs.skin.launches
+    check_summary(summary, WINDOW_FRAMES, steps)
+    if summary["first_flush_frames"] != 2 * WINDOW:
+        raise RuntimeError(f"the first flush held {summary['first_flush_frames']}"
+                           f" frames, not a chunk of 2 windows")
+    if launches < steps:
+        raise RuntimeError(f"skinning kernel launched {launches} times over "
+                           f"{steps} window steps")
+    ckpt = os.path.join(tmp, "exps", "window", "checkpoint.npz")
+    if not os.path.exists(ckpt) or os.path.exists(ckpt + ".tmp"):
+        raise RuntimeError("no complete checkpoint.npz after the run")
+    args = benchmark.build_parser().parse_args(argv)
+    system = build_system(benchmark.cfg_from_args(args), None, "cuda")
+    state = load_state(ckpt, system.engine.init_state(system.params,
+                                                      batch_size=WINDOW))
+    if state.step != steps:
+        raise RuntimeError(f"checkpoint at step {state.step}, expected {steps}")
+    # after the first flush (the chunk of 2 windows) the one steady flush
+    # is the padded tail: a full window step of compute for 4 real frames,
+    # overlapping the write of the periodic checkpoint taken before it
+    tail = WINDOW_FRAMES - 2 * WINDOW
+    s_window = tail / summary["fps"]
+    print(f"windowed path: {WINDOW_FRAMES} frames, W={WINDOW}, {steps} "
+          f"window steps in {wall:.1f} s (first flush, a chunk of 2 windows,"
+          f" {summary['first_frame_s'] * 2 * WINDOW:.2f} s); tail "
+          f"{s_window:.4f} s per window step = {WINDOW / s_window:.3f} "
+          f"aggregate frames/s at W={WINDOW}; per-frame extra steps "
+          f"{summary['optim_steps']}; MPJPE {summary['mpjpe']:.2f}; kernel "
+          f"launches {launches}; checkpoint loads at step {state.step}",
+          flush=True)
+    return launches, dict(s_per_window_step=s_window,
+                          aggregate_fps=WINDOW / s_window)
+
+
+def resume_phase(torch, tmp):
+    """Uninterrupted 12 frames at W = 4 against 8 frames + checkpoint +
+    resume over the last 4, with deterministic cuDNN and algorithms.  The
+    final states must be bit-equal, every leaf of them; only where PyTorch
+    names an op without a deterministic implementation are the params held
+    to the Adam drift bound n_updates * lr instead."""
+    import warnings
+
+    from dynaboa_tpu_torch.apps import benchmark
+    from dynaboa_tpu_torch.engine.checkpoint import group_diffs
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    expdir = os.path.join(tmp, "resume")
+
+    def run(name, *extra):
+        return benchmark.main([
+            "--device", "cuda", "--synthetic", str(RESUME_FRAMES),
+            "--window_size", str(RESUME_W), "--use_pallas_lbs", "1",
+            "--checkpoint_every", str(RESUME_W), "--expdir", expdir,
+            "--expname", name, *extra])
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    klbs.skin.launches = 0
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            full = run("full")
+            half = run("half", "--max_frames", str(RESUME_STOP))
+            resumed = run("resumed", "--resume",
+                          os.path.join(expdir, "half", "checkpoint.npz"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    launches = klbs.skin.launches
+    check_summary(full, RESUME_FRAMES, RESUME_FRAMES // RESUME_W)
+    check_summary(half, RESUME_STOP, RESUME_STOP // RESUME_W)
+    check_summary(resumed, RESUME_FRAMES - RESUME_STOP,
+                  RESUME_FRAMES // RESUME_W)
+    if launches == 0:
+        raise RuntimeError("the resume path never launched the kernel")
+    steps_full = full["optim_steps"]
+    steps_split = half["optim_steps"] + resumed["optim_steps"]
+    if steps_full != steps_split:
+        raise RuntimeError(f"step counts differ: uninterrupted {steps_full},"
+                           f" resumed {steps_split}")
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    diffs = group_diffs(os.path.join(expdir, "full", "checkpoint.npz"),
+                        os.path.join(expdir, "resumed", "checkpoint.npz"))
+    for k in ("count", "step", "rng"):
+        if diffs[k] != 0.0:
+            raise RuntimeError(f"resumed {k} differs from the uninterrupted "
+                               f"run's by {diffs[k]}")
+    n_updates = sum(n + 1 for n in steps_full[::RESUME_W])
+    bound = n_updates * 3e-6       # n_updates * lr, the Adam drift bound
+    if not nondet:
+        unequal = {k: d for k, d in diffs.items() if d != 0.0}
+        if unequal:
+            raise RuntimeError(f"resumed state not bit-equal, with no "
+                               f"nondeterministic op reported: {unequal}")
+    elif diffs["params"] >= bound:
+        raise RuntimeError(f"resumed params differ by {diffs['params']:.3e}, "
+                           f"beyond the Adam drift bound {bound:.3e}")
+    print(f"resume: step counts equal {steps_full}; Adam count, step and rng "
+          f"equal; largest difference by part of the state {diffs} (params "
+          f"bound n_updates*lr = {bound:.3e} applies only where an op is "
+          f"named); kernel launches {launches}; ops without a deterministic "
+          f"CUDA implementation: {nondet or 'none reported'}", flush=True)
+    return launches, diffs
+
+
+def internet_phase(torch, tmp):
+    import numpy as np
+
+    from dynaboa_tpu_torch.apps import internet
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    expdir = os.path.join(tmp, "internet")
+    klbs.skin.launches = 0
+    summary = internet.main(["--device", "cuda", "--synthetic", "4",
+                             "--use_pallas_lbs", "1", "--expdir", expdir])
+    launches = klbs.skin.launches
+    check_summary(summary, 4, 4, metrics=False)
+    if launches == 0:
+        raise RuntimeError("the internet path never launched the kernel")
+    run = os.path.join(expdir, "internet")
+    for i in range(4):
+        pred = np.load(os.path.join(run, "result", f"Pred_{i}.npz"))
+        shape = pred["verts"].shape
+        if len(shape) != 3 or shape[0] != 1 or \
+                not np.isfinite(pred["verts"]).all():
+            raise RuntimeError(f"Pred_{i}.npz: verts {shape}")
+    if summary["mpjpe"] != 0.0 or summary["pve"] != 0.0 or \
+            os.path.exists(os.path.join(run, "steps_statistic_res.npz")):
+        raise RuntimeError("metrics were computed on the unlabeled stream")
+    print(f"internet app: 4 predictions written with finite verts "
+          f"{shape}, no metric computed; kernel launches {launches}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -269,16 +459,25 @@ def main() -> int:
         launches, _ = main_path_phase(torch, tmp)
         phase("4 tiny CLI run, cuda vs cpu")
         cross_device_phase(tmp)
+        phase(f"5 windowed path, W={WINDOW}, full width")
+        launches_w, _ = windowed_phase(torch, tmp)
+        phase(f"6 resume at full width, W={RESUME_W}")
+        launches_r, _ = resume_phase(torch, tmp)
+        phase("7 internet app at full width")
+        launches_i = internet_phase(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
 
     kernels = [{
         "name": "lbs_skin", "route": "cuda",
         "source": "dynaboa_tpu_torch/csrc/lbs_skin.cu",
         "replaces": "dynaboa_tpu/kernels/lbs.py:45",
         "launches": launches, "max_abs_err": max_err,
-        "ms": times["cold"][0], "plain_ms": times["cold"][1],
+        "ms": times[1, "cold"][0], "plain_ms": times[1, "cold"][1],
+        "ms_n8": times[WINDOW, "cold"][0],
+        "plain_ms_n8": times[WINDOW, "cold"][1],
+        "launches_by_path": {"per_frame": launches, "windowed": launches_w,
+                             "resume": launches_r, "internet": launches_i},
     }]
     print(info)
     print(json.dumps({"kernels": kernels}))

@@ -4,12 +4,18 @@ adaptation + evaluation.
 
 The argparse surface of ``dynaboa_tpu/apps/benchmark.py`` plus ``--device``
 (default ``cuda``; the CPU must be asked for by name).  ``--synthetic N``
-runs the pipeline on a deterministic synthetic stream.  Flags whose
-machinery is not ported exit with a message.  ``--use_pallas_lbs`` keeps its
-name: it selects the Hopper skinning kernel for the no-grad SMPL decodes.
+runs the pipeline on a deterministic synthetic stream; without it the 3DPW
+archives under ``data/dataset_extras`` are read.  ``--window_size``,
+``--chunk_size``, ``--fused_preprocess``, ``--checkpoint_every``,
+``--resume``, ``--auto_reset`` and ``--profile_dir`` work as in the JAX CLI.
+``--parallel_streams`` and ``--compute_dtype bfloat16`` are not ported and
+exit with a message.  ``--use_pallas_lbs`` keeps its name: it selects the
+Hopper skinning kernel for the no-grad SMPL decodes.
 
 Usage:
   python -m dynaboa_tpu_torch.apps.benchmark --device cuda --synthetic 8
+  python -m dynaboa_tpu_torch.apps.benchmark --device cuda --synthetic 20 \
+      --window_size 8 --chunk_size 2 --fused_preprocess 1 --checkpoint_every 16
 """
 
 from __future__ import annotations
@@ -72,8 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=int, default=0,
                    help="run on N synthetic frames instead of 3DPW")
     p.add_argument("--max_frames", type=int, default=None)
-    p.add_argument("--checkpoint_every", type=int, default=0)
-    p.add_argument("--checkpoint_duty", type=float, default=1.0 / 3.0)
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="checkpoint every N frames (0: never).  A checkpoint "
+                        "first runs the pending frames, so with windows and "
+                        "chunks make N a multiple of chunk_size * "
+                        "window_size, or chunks never fill")
+    p.add_argument("--checkpoint_duty", type=float, default=1.0 / 3.0,
+                   help="accepted for CLI parity; no effect in the port, "
+                        "whose checkpoint writer has no duty-cycle bound")
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--parallel_streams", type=int, default=0)
@@ -81,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--window_size", type=int, default=1)
     p.add_argument("--defer_window", type=int, default=32,
                    help="accepted for CLI parity; the port records every "
-                        "frame synchronously")
+                        "frame (or chunk) synchronously")
     p.add_argument("--auto_reset", type=int, default=0, choices=[0, 1])
     p.add_argument("--tiny", type=int, default=0,
                    help="smoke mode: tiny network + body model")
@@ -125,22 +137,18 @@ def cfg_from_args(args):
     )
 
 
-def _refuse_unported(args) -> None:
-    unported = {
-        "--chunk_size > 1": args.chunk_size != 1,
-        "--window_size > 1": args.window_size != 1,
-        "--fused_preprocess": args.fused_preprocess,
-        "--parallel_streams": args.parallel_streams,
-        "--resume": args.resume,
-        "--checkpoint_every": args.checkpoint_every,
-        "--auto_reset": args.auto_reset,
-        "--profile_dir": args.profile_dir,
-        "a real 3DPW stream (pass --synthetic N)": not args.synthetic,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise SystemExit(f"not ported to dynaboa_tpu_torch yet: "
-                         f"{', '.join(bad)}")
+def tiny_kwargs(args) -> dict:
+    """The smoke-mode network and body model of ``--tiny 1``."""
+    if not args.tiny:
+        return {}
+    return dict(model_kwargs=dict(layers=(1, 1, 1, 1), width=16,
+                                  regressor_dim=128), num_vertices=256)
+
+
+def refuse_unported(args) -> None:
+    if args.parallel_streams:
+        raise SystemExit("not ported to dynaboa_tpu_torch yet: "
+                         "--parallel_streams")
     if args.compute_dtype != "float32":
         raise NotImplementedError(
             f"--compute_dtype {args.compute_dtype}: the PyTorch port runs "
@@ -149,38 +157,52 @@ def _refuse_unported(args) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    refuse_unported(args)
     exppath = osp.join(args.expdir, args.expname)
     os.makedirs(exppath, exist_ok=True)
 
     from dynaboa_tpu.config import Paths
-    from dynaboa_tpu_torch.apps.common import build_system
-    from dynaboa_tpu_torch.data.streams import SyntheticStream
-    from dynaboa_tpu_torch.engine.runner import StreamRunner
+    from dynaboa_tpu_torch.apps.common import build_system, write_settings
+    from dynaboa_tpu_torch.data.streams import PW3DStream, SyntheticStream
 
-    with open(osp.join(exppath, "setting.txt"), "w") as f:
-        f.write("------------------ start ------------------\n")
-        for k, v in sorted(vars(args).items()):
-            f.write(f"{k} : {v}\n")
-        f.write("------------------- end -------------------")
+    write_settings(exppath, args)
     cfg = cfg_from_args(args)
     paths = Paths(basemodel=args.model_file)
-    tiny = dict(model_kwargs=dict(layers=(1, 1, 1, 1), width=16,
-                                  regressor_dim=128),
-                num_vertices=256) if args.tiny else {}
-    system = build_system(cfg, paths, args.device, **tiny)
+    fused = bool(args.fused_preprocess)
+    if args.synthetic:
+        stream = SyntheticStream(num_frames=args.synthetic, seed=args.seq_seed,
+                                 fused_preprocess=fused)
+    else:
+        stream = PW3DStream(paths.dataset_npz_path, paths.pw3d_root,
+                            fused_preprocess=fused)
+        stream.record_order(osp.join(exppath, "seq_order.record"))
+    system = build_system(cfg, paths, args.device, **tiny_kwargs(args))
     if any(system.synthetic.values()):
         print(f"---> synthetic stand-ins active: "
               f"{[k for k, v in system.synthetic.items() if v]}")
+    return run_stream(system, stream, args, exppath,
+                      save_predictions=bool(args.save_res))
 
-    stream = SyntheticStream(num_frames=args.synthetic, seed=args.seq_seed)
+
+def run_stream(system, stream, args, exppath: str,
+               save_predictions: bool) -> dict:
+    """The runner over ``stream`` with the CLI's runtime flags; returns the
+    run summary."""
+    from dynaboa_tpu_torch.engine.runner import StreamRunner
+
     runner = StreamRunner(system.engine, exppath,
-                          save_predictions=bool(args.save_res))
-    state = system.engine.init_state(system.params, batch_size=1)
+                          save_predictions=save_predictions,
+                          checkpoint_every=args.checkpoint_every,
+                          profile_dir=args.profile_dir)
+    W = args.window_size
+    state = system.engine.init_state(system.params, batch_size=W)
     try:
         _, summary = runner.run(stream, state,
-                                keypoint_source=cfg.keypoint_source,
-                                max_frames=args.max_frames)
+                                keypoint_source=system.cfg.keypoint_source,
+                                resume_from=args.resume,
+                                max_frames=args.max_frames,
+                                chunk_size=args.chunk_size, window_size=W,
+                                auto_reset=bool(args.auto_reset))
     finally:
         runner.close()
     return summary

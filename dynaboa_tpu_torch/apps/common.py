@@ -15,7 +15,9 @@ import torch
 from dynaboa_tpu import constants
 from dynaboa_tpu.config import AdaptConfig, Paths
 from dynaboa_tpu_torch.engine.bilevel import BilevelEngine
-from dynaboa_tpu_torch.engine.retrieval import RetrievalStore, synthetic_store
+from dynaboa_tpu_torch.engine.retrieval import (RetrievalStore,
+                                                load_reference_store,
+                                                synthetic_store)
 from dynaboa_tpu_torch.losses.priors import (default_gmm_path, load_gmm_prior,
                                              synthetic_gmm_prior)
 from dynaboa_tpu_torch.metrics.eval import GenderedSMPL
@@ -63,11 +65,14 @@ def build_smpls(paths: Paths, device, num_vertices: int | None = None
 
 
 def build_system(cfg: AdaptConfig, paths: Paths | None, device,
+                 compute_metrics: bool = True,
                  img_res: int = constants.IMG_RES,
                  model_kwargs: dict | None = None,
                  num_vertices: int | None = None) -> System:
     """``model_kwargs``/``num_vertices`` shrink the network and body model
-    (smoke mode; real checkpoints need the full defaults)."""
+    (smoke mode; real checkpoints need the full defaults).
+    ``compute_metrics=False`` is for unlabeled streams (see
+    ``BilevelEngine``)."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -109,16 +114,31 @@ def build_system(cfg: AdaptConfig, paths: Paths | None, device,
         cluster_file = os.path.join(
             paths.retrieval_res,
             "cluster_res_random_sample_center_10_10_potocol2.pt")
-        if os.path.exists(cluster_file) and not model_kwargs:
-            raise NotImplementedError(
-                "the reference retrieval store (H36M exemplars) is not "
-                "ported; remove data/retrieval_res to use the synthetic store")
-        width = (model_kwargs or {}).get("width", 64)
-        store = synthetic_store(cfg.seed, device, img_res=img_res,
-                                feat_dim=width * 8 * 4)
-        synthetic["retrieval"] = True
+        source_file = os.path.join(
+            paths.retrieval_res, "h36m_random_sample_center_10_10.pt")
+        if (os.path.exists(cluster_file) and os.path.exists(source_file)
+                and not model_kwargs):
+            store = load_reference_store(paths.retrieval_res, source_file,
+                                         paths.h36m_root, device)
+            synthetic["retrieval"] = False
+        else:
+            width = (model_kwargs or {}).get("width", 64)
+            store = synthetic_store(cfg.seed, device, img_res=img_res,
+                                    feat_dim=width * 8 * 4)
+            synthetic["retrieval"] = True
 
-    engine = BilevelEngine(cfg, model, prior, smpls, store)
+    engine = BilevelEngine(cfg, model, prior, smpls, store,
+                           compute_metrics=compute_metrics)
     return System(cfg=cfg, paths=paths, device=device, model=model,
                   params=params, engine=engine, smpls=smpls, store=store,
                   synthetic=synthetic)
+
+
+def write_settings(exppath: str, args) -> None:
+    """setting.txt: every CLI argument, sorted."""
+    os.makedirs(exppath, exist_ok=True)
+    with open(os.path.join(exppath, "setting.txt"), "w") as f:
+        f.write("------------------ start ------------------\n")
+        for k, v in sorted(vars(args).items()):
+            f.write(f"{k} : {v}\n")
+        f.write("------------------- end -------------------")

@@ -19,10 +19,24 @@ Sections, each printed as it ends:
   5. one engine with the skinning kernel switched on and off between
      blocks of frames (on, off, off, on, ...): median wall ms per frame of
      each, then one profiled frame of each, by host time per op
+  6. windowed adaptation (B = W = 8, fused preprocessing) against the
+     per-frame path in one process, in turns (window, frames, frames,
+     window, ...): median wall ms per frame of each, then one profiled
+     window step: device time by op, kernel count and idle share
+  7. checkpoints and determinism: the windowed CLI of chip_smoke.py phase 5
+     with --checkpoint_every 16 against none (3 pairs, alternating):
+     the tail window step's seconds with and without a write in flight; the
+     time of one checkpoint's device snapshot, device-to-host copy and
+     blocking save at W = 8; then the resume runs of phase 6 without and
+     with deterministic algorithms: run-to-run and resumed differences by
+     part of the state, and seconds per window step
+
+  python -m dynaboa_tpu_torch.apps.profile --sections 6 7   # only 6 and 7
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -168,22 +182,168 @@ def kernel_ab_section(tmp: str, device: str, rounds: int = 4,
               f"span {span} us", flush=True)
 
 
-def main() -> None:
+def window_section(tmp: str, device: str, W: int = 8, rounds: int = 4,
+                   warm: int = 2) -> None:
+    from dynaboa_tpu.config import AdaptConfig, Paths
+    from dynaboa_tpu_torch.apps.common import build_system
+    from dynaboa_tpu_torch.data.streams import SyntheticStream
+    from dynaboa_tpu_torch.engine.runner import (frame_from_item,
+                                                 frame_from_window)
+
+    system = build_system(AdaptConfig(use_pallas_lbs=True), Paths(), device)
+    engine = system.engine
+    states = {"window": engine.init_state(system.params, batch_size=W),
+              "frames": engine.init_state(system.params, batch_size=1)}
+    items = iter(SyntheticStream(num_frames=2 * W * (warm + rounds + 1),
+                                 seed=22, fused_preprocess=True))
+
+    def block(mode: str) -> float:
+        """One window step, or W per-frame steps: wall s per frame."""
+        batch = [next(items) for _ in range(W)]
+        t0 = time.perf_counter()
+        if mode == "window":
+            states[mode], _ = engine.step(
+                states[mode], frame_from_window(batch, device))
+        else:
+            for it in batch:
+                states[mode], _ = engine.step(states[mode],
+                                              frame_from_item(it, device))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / W
+
+    for _ in range(warm):
+        block("window")
+        block("frames")
+    times = {"window": [], "frames": []}
+    for r in range(rounds):
+        for mode in (("window", "frames") if r % 2 == 0
+                     else ("frames", "window")):
+            times[mode].append(block(mode))
+    for mode, ts in times.items():
+        med = statistics.median(ts)
+        print(f"{mode}: median {med * 1e3:.2f} ms per frame = "
+              f"{1.0 / med:.3f} frames/s over {len(ts)} blocks of {W} frames "
+              f"{[round(t * 1e3, 2) for t in ts]}", flush=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        block("window")
+    print(f"--- one profiled window step, W={W}")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=25, max_name_column_width=60))
+    trace = os.path.join(tmp, "trace_window.json")
+    prof.export_chrome_trace(trace)
+    kernels, busy, span = device_busy(trace)
+    print(f"window W={W}: {kernels} device kernels; busy {busy} us of span "
+          f"{span} us -> idle share {1 - busy / span:.3f}", flush=True)
+
+
+def checkpoint_section(tmp: str, device: str, rounds: int = 3) -> None:
+    from dynaboa_tpu.config import AdaptConfig
+    from dynaboa_tpu_torch.apps.common import build_system
+    from dynaboa_tpu_torch.engine import checkpoint as ck
+
+    # (a) the windowed CLI of chip_smoke.py phase 5 (20 frames, W = 8, a
+    # chunk of 2 windows, then a 4-frame tail) with the checkpoint at frame
+    # 16 in flight during the tail's window step, and without checkpoints
+    W, frames, tail = 8, 20, 4
+    window = ["--window_size", str(W), "--chunk_size", "2",
+              "--fused_preprocess", "1", "--use_pallas_lbs", "1"]
+    tails = {"ckpt16": [], "none": []}
+    for r in range(rounds):
+        for mode in (("ckpt16", "none") if r % 2 == 0 else ("none", "ckpt16")):
+            extra = ["--checkpoint_every", "16"] if mode == "ckpt16" else []
+            s = cli_run(tmp, f"window_{mode}_{r}", device, frames, *window,
+                        *extra)
+            tails[mode].append(tail / s["fps"])
+    for mode, ts in tails.items():
+        print(f"windowed CLI, checkpoints {mode}: tail window step "
+              f"{[round(t, 4) for t in ts]} s, median "
+              f"{statistics.median(ts):.4f} s", flush=True)
+
+    # the write itself, at W = 8: the device snapshot, its device-to-host
+    # copy and the whole blocking save
+    system = build_system(AdaptConfig(use_pallas_lbs=True), None, device)
+    state = system.engine.init_state(system.params, batch_size=W)
+    path = os.path.join(tmp, "ck.npz")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, packed, _ = ck._pack_state(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = packed["float32"].cpu()
+        t2 = time.perf_counter()
+        ck.save_state(path, state)
+        t3 = time.perf_counter()
+        print(f"checkpoint W={W}: {host.numel() * 4 / 1e9:.3f} GB float32; "
+              f"snapshot {t1 - t0:.4f} s, device-to-host {t2 - t1:.4f} s, "
+              f"blocking save {t3 - t2:.4f} s", flush=True)
+    del state, system, host, packed
+
+    # (b) the resume configuration of phase 6 (12 frames at W = 4,
+    # checkpoints every window) without and with deterministic algorithms:
+    # run-to-run and resume differences by part of the state, and the cost
+    def resume_runs(tag: str) -> dict:
+        res = {}
+        for name in ("a", "b"):
+            res[name] = cli_run(tmp, f"{tag}_{name}", device, 12,
+                                "--window_size", "4", "--use_pallas_lbs", "1",
+                                "--checkpoint_every", "4")
+        cli_run(tmp, f"{tag}_half", device, 12, "--window_size", "4",
+                "--use_pallas_lbs", "1", "--checkpoint_every", "4",
+                "--max_frames", "8")
+        cli_run(tmp, f"{tag}_resumed", device, 12, "--window_size", "4",
+                "--use_pallas_lbs", "1", "--checkpoint_every", "4",
+                "--resume", os.path.join(tmp, f"{tag}_half",
+                                         "checkpoint.npz"))
+        ck_of = {n: os.path.join(tmp, f"{tag}_{n}", "checkpoint.npz")
+                 for n in ("a", "b", "resumed")}
+        print(f"{tag}: steady s per window step "
+              f"{[round(4 / s['fps'], 4) for s in res.values()]}; run a vs b "
+              f"{ck.group_diffs(ck_of['a'], ck_of['b'])}; a vs resumed "
+              f"{ck.group_diffs(ck_of['a'], ck_of['resumed'])}", flush=True)
+        return res
+
+    resume_runs("nondeterministic")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        resume_runs("deterministic")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--sections", type=int, nargs="*",
+                   default=[1, 2, 3, 4, 5, 6, 7])
+    sections = set(p.parse_args(argv).sections)
     if not torch.cuda.is_available():
         raise SystemExit("the profile needs a CUDA device")
     device = "cuda"
     tmp = tempfile.mkdtemp(prefix="dynaboa_profile_")
     try:
-        gmm_section(device)
-        for r in range(ROUNDS):
-            for lbs in ((1, 0) if r % 2 == 0 else (0, 1)):
-                cli_run(tmp, f"kernel_{'on' if lbs else 'off'}_{r}", device,
-                        FRAMES, "--use_pallas_lbs", str(lbs))
-        cli_run(tmp, "kernel_on_thr-1", device, FRAMES - 2,
-                "--use_pallas_lbs", "1", "--cos_sim_threshold", "-1")
-        profile_section(tmp, device, 3.1e-4, warm=3, frames=2)
-        profile_section(tmp, device, -1.0, warm=2, frames=1)
-        kernel_ab_section(tmp, device)
+        if 1 in sections:
+            gmm_section(device)
+        if 2 in sections:
+            for r in range(ROUNDS):
+                for lbs in ((1, 0) if r % 2 == 0 else (0, 1)):
+                    cli_run(tmp, f"kernel_{'on' if lbs else 'off'}_{r}",
+                            device, FRAMES, "--use_pallas_lbs", str(lbs))
+        if 3 in sections:
+            cli_run(tmp, "kernel_on_thr-1", device, FRAMES - 2,
+                    "--use_pallas_lbs", "1", "--cos_sim_threshold", "-1")
+        if 4 in sections:
+            profile_section(tmp, device, 3.1e-4, warm=3, frames=2)
+            profile_section(tmp, device, -1.0, warm=2, frames=1)
+        if 5 in sections:
+            kernel_ab_section(tmp, device)
+        if 6 in sections:
+            window_section(tmp, device)
+        if 7 in sections:
+            checkpoint_section(tmp, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -22,6 +22,15 @@ batch through the backbone.  Update 0 retrieves with the pre-inner features
 per-update records, final prediction) run through the Hopper skinning kernel;
 the decodes inside the losses stay on the eager autograd path.
 
+A batch of B rows (the runner's windowed mode, B = W consecutive frames)
+shares one bilevel update: every loss term averages over the rows that
+``Frame.mask`` marks valid, retrieval keys off row 0, and the gate reads one
+cosine per window.  Predictions and metrics stay per row.
+
+``compute_metrics=False`` (unlabeled streams) skips the GT targets and every
+metric evaluation: metrics come out as zeros and there are no per-update
+records.
+
 The state is updated in place: ``step`` returns the same ``AdaptState`` it
 was given.
 """
@@ -75,7 +84,8 @@ class AdaptState:
 
 class BilevelEngine:
     def __init__(self, cfg: AdaptConfig, model: HMR, prior: GMMPrior,
-                 smpls: GenderedSMPL, store: RetrievalStore | None = None):
+                 smpls: GenderedSMPL, store: RetrievalStore | None = None,
+                 compute_metrics: bool = True):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port runs "
@@ -95,6 +105,8 @@ class BilevelEngine:
         self.prior = prior
         self.smpls = smpls
         self.store = store
+        self.compute_metrics = compute_metrics
+        self._record_dynamic = cfg.record_dynamic and compute_metrics
         self._lbs_kernel = (LBSKernelSMPL(smpls.neutral)
                             if cfg.use_pallas_lbs else None)
 
@@ -248,22 +260,57 @@ class BilevelEngine:
 
     @torch.no_grad()
     def _metrics(self, verts, targets):
+        if targets is None:      # compute_metrics=False
+            z = torch.zeros((verts.shape[0],), device=verts.device)
+            return {"mpjpe": z, "pampjpe": z, "pve": z}
         return evaluate_pred(self.smpls, verts, targets)
 
     # -- the per-frame step --------------------------------------------------
 
-    def step(self, state: AdaptState, frame: Frame, cos_sim_threshold=None):
-        """Adapt on one frame and predict; returns ``(state, outputs)`` with
-        ``state`` updated in place."""
+    def _cap(self, extra_cap) -> int:
+        """Extra updates allowed beyond the mandatory first; the loop's
+        bound is ``1 + cfg.optim_steps``, so a larger cap is refused rather
+        than silently clamped."""
+        if extra_cap is None:
+            return self.cfg.optim_steps
+        if extra_cap > self.cfg.optim_steps:
+            raise ValueError(
+                f"extra_cap={extra_cap} exceeds cfg.optim_steps="
+                f"{self.cfg.optim_steps}, the update loop's bound; raise "
+                "optim_steps to sweep beyond it")
+        return int(extra_cap)
+
+    def run_chunk(self, state: AdaptState, frames: list[Frame],
+                  cos_sim_threshold=None, extra_cap=None):
+        """Adapt over a chunk of frames (or windows).  Unlike the JAX
+        package's ``lax.scan`` there is no fused multi-frame program here:
+        it is a loop of ``step`` over the chunk, so a chunked run equals the
+        sequential one bit for bit.  Returns ``(state, outputs)``, one
+        output dict per frame, still on the device: the caller copies them
+        to the host once, after the chunk."""
+        outs = []
+        for frame in frames:
+            state, out = self.step(state, frame, cos_sim_threshold, extra_cap)
+            outs.append(out)
+        return state, outs
+
+    def step(self, state: AdaptState, frame: Frame, cos_sim_threshold=None,
+             extra_cap=None):
+        """Adapt on one frame (or one window of B frames) and predict;
+        returns ``(state, outputs)`` with ``state`` updated in place.
+        ``extra_cap`` bounds the extra updates below ``cfg.optim_steps``."""
         cfg = self.cfg
         thr = (cfg.cos_sim_threshold if cos_sim_threshold is None
                else float(cos_sim_threshold))
+        cap = self._cap(extra_cap)
         outputs: dict[str, Any] = {}
 
         # prediction-independent GT targets, shared by every evaluation
-        with torch.no_grad():
-            eval_targets = gt_targets(self.smpls, frame.pose, frame.betas,
-                                      frame.gender)
+        eval_targets = None
+        if self.compute_metrics:
+            with torch.no_grad():
+                eval_targets = gt_targets(self.smpls, frame.pose, frame.betas,
+                                          frame.gender)
 
         if cfg.use_boa:
             with torch.no_grad():
@@ -299,12 +346,13 @@ class BilevelEngine:
             sims = torch.zeros((max_updates,), device=dev)
             losses = torch.zeros((max_updates,), device=dev)
             recs = (torch.zeros((3, max_updates, B), device=dev)
-                    if cfg.record_dynamic else None)
+                    if self._record_dynamic else None)
             pred_c = (rotmat0, shape0, cam0, init_feats)
             upper_aux: dict = {}
             sim = None
             n = 0
-            while n < max_updates and (n == 0 or bool((1.0 - sim) > thr)):
+            while n < max_updates and (
+                    n == 0 or (n <= cap and bool((1.0 - sim) > thr))):
                 # update 0 retrieves off the carried pre-inner features
                 bank = self._retrieve(pred_c[3][5][0], state.rng)
                 eval_params = learner if n == 0 else state.params

@@ -70,6 +70,26 @@ def build_store(centers, cluster_indices: list[list[int]],
         bank=bank)
 
 
+def load_reference_store(retrieval_dir: str, source_data_path: str,
+                         h36m_root: str, device) -> RetrievalStore:
+    """The reference's retrieval assets: K-means centres and member lists
+    (joblib, ``data/retrieval_res``) and the H36M exemplar bank they index,
+    preprocessed once onto ``device``."""
+    import os
+
+    import joblib
+
+    from dynaboa_tpu_torch.data.source import load_source_exemplars
+
+    res = joblib.load(os.path.join(
+        retrieval_dir, "cluster_res_random_sample_center_10_10_potocol2.pt"))
+    centers = np.asarray(res["centers"], np.float32)
+    index = res["index"]
+    cluster_indices = [list(index[c]) for c in range(len(centers))]
+    bank = load_source_exemplars(source_data_path, h36m_root, device)
+    return build_store(centers, cluster_indices, bank)
+
+
 def synthetic_store(seed: int, device, num_clusters: int = 10,
                     num_exemplars: int = 40, img_res: int = 224,
                     feat_dim: int = 2048) -> RetrievalStore:

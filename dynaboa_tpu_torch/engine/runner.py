@@ -1,9 +1,25 @@
-"""Sequential streaming runner (counterpart of the ``chunk_size=1``,
-``window_size=1`` path of ``dynaboa_tpu/engine/runner.py``): adapt on every
-frame, record its outputs on the host right after its step, aggregate
-MPJPE / PA-MPJPE / PVE, and write the same artifacts (``res.txt``,
-``scalars.jsonl``, the npz records and, with ``save_predictions``,
-``result/Pred_*.npz``)."""
+"""Streaming runner (counterpart of ``dynaboa_tpu/engine/runner.py``): adapt
+on every frame of an ordered stream, aggregate MPJPE / PA-MPJPE / PVE and
+write the same artifacts (``res.txt``, ``scalars.jsonl``, the npz records
+and, with ``save_predictions``, ``result/Pred_*.npz``).
+
+Modes, as in the JAX runner:
+- ``window_size=W``: W consecutive frames form one batch that shares one
+  bilevel update; the final partial window is padded with its last real
+  frame and the pad rows are masked out of every loss and never recorded.
+- ``chunk_size=C``: C frames (or windows) go to ``BilevelEngine.run_chunk``
+  and their outputs come to the host after the chunk.
+- ``checkpoint_every`` / ``resume_from``: bit-exact resume from the
+  checkpoint of ``engine.checkpoint``; a final checkpoint is guaranteed.
+- ``auto_reset``: a non-finite loss or metric resets params, teacher and
+  optimizer to the initial weights (history, step and rng are kept).
+- raw-frame items (fused preprocessing) are cropped on the engine's device.
+
+Recording is synchronous: each frame's (or chunk's) outputs reach the host
+right after its step, and its time runs from the upload of its first frame
+to that point.  The JAX runner's deferred, packed output fetch is not
+ported: it was built for a slow host transport.
+"""
 
 from __future__ import annotations
 
@@ -16,26 +32,66 @@ import torch
 
 from dynaboa_tpu import constants
 from dynaboa_tpu_torch.engine.bilevel import AdaptState, BilevelEngine, Frame
+from dynaboa_tpu_torch.engine.checkpoint import AsyncCheckpointer, load_state
 from dynaboa_tpu_torch.metrics.writer import ScalarWriter
+from dynaboa_tpu_torch.ops.image import fused_crop_resize_normalize
+
+_PER_FRAME_KEYS = ("mpjpe", "pampjpe", "pve", "verts", "rotmat", "beta",
+                   "cam")
 
 
 def frame_from_item(item: dict, device, keypoint_source: str = "gt") -> Frame:
-    """Lift a host-preprocessed dataset item (no batch dim) into a Frame on
-    ``device``."""
-    if "image" not in item:
-        raise NotImplementedError(
-            "raw-frame items (fused preprocessing) are not ported")
+    """Lift a dataset item (no batch dim) into a Frame on ``device``.  Items
+    with ``raw_image`` are cropped, resized and normalized there."""
     j2d = item["op_j2d"] if keypoint_source == "openpose" else item["smpl_j2d"]
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32)[None]).to(device)
+        # batch axis added by torch, so its stride is the dense one (numpy's
+        # [None] gives stride 0, which some convolution paths treat apart)
+        return torch.tensor(np.asarray(a, np.float32), device=device)[None]
 
+    if "raw_image" in item:
+        image = fused_crop_resize_normalize(
+            torch.as_tensor(item["raw_image"]).to(device),
+            torch.as_tensor(item["center"]).to(device),
+            torch.as_tensor(item["scale"]).to(device),
+            out_res=int(item.get("out_res", constants.IMG_RES)))[None]
+    else:
+        image = t(item["image"])
     return Frame(
-        image=t(item["image"]), j2d=t(j2d), pose=t(item["pose"]),
-        betas=t(item["betas"]),
+        image=image, j2d=t(j2d), pose=t(item["pose"]), betas=t(item["betas"]),
         gender=torch.tensor([int(item["gender"])], dtype=torch.int32,
                             device=device),
         mask=torch.ones((1,), dtype=torch.float32, device=device))
+
+
+def frame_from_window(items: list[dict], device,
+                      keypoint_source: str = "gt") -> Frame:
+    """Stack W consecutive frames into one batched Frame (B = W).  The
+    history ring then stores whole windows, so the motion loss pairs row i
+    of window t with row i of window t - interval."""
+    frames = [frame_from_item(it, device, keypoint_source) for it in items]
+    return Frame(*[torch.cat([getattr(f, k) for f in frames])
+                   for k in Frame._fields])
+
+
+def split_window_out(out: dict, W: int) -> list[dict]:
+    """Split a window step's host outputs into W per-frame records:
+    predictions and metrics slice along the batch axis, the per-update
+    records ``(max_updates, B)`` along their second axis, and window-level
+    quantities (losses, step counts, feature sims) are shared."""
+    res = []
+    for j in range(W):
+        o = {}
+        for k, v in out.items():
+            if k in _PER_FRAME_KEYS or k.startswith("lower_"):
+                o[k] = v[j:j + 1]
+            elif k in ("per_step_mpjpe", "per_step_pampjpe", "per_step_pve"):
+                o[k] = v[:, j:j + 1]
+            else:
+                o[k] = v
+        res.append(o)
+    return res
 
 
 def _to_host(x):
@@ -43,18 +99,35 @@ def _to_host(x):
         return x.detach().cpu().numpy()
     if isinstance(x, dict):
         return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_host(v) for v in x]
     return x
+
+
+def _diverged(out: dict) -> bool:
+    checks = [out.get("mpjpe", 0.0), out.get("upper", {}).get("loss", 0.0),
+              out.get("lower", {}).get("loss", 0.0)]
+    return any(not np.isfinite(np.asarray(c)).all() for c in checks)
 
 
 class StreamRunner:
     def __init__(self, engine: BilevelEngine, exppath: str,
-                 save_predictions: bool = False, log_every: int = 200):
+                 save_predictions: bool = False, checkpoint_every: int = 0,
+                 log_every: int = 200, profile_dir: str | None = None):
+        """``profile_dir``: write a ``torch.profiler`` chrome trace of the
+        run there (``trace.json``)."""
         self.engine = engine
         self.exppath = exppath
         os.makedirs(osp.join(exppath, "result"), exist_ok=True)
         self.writer = ScalarWriter(exppath)
         self.save_predictions = save_predictions
+        self.checkpoint_every = checkpoint_every
         self.log_every = log_every
+        self.profile_dir = profile_dir
+        self._ckpt = AsyncCheckpointer()
+        self.reset_records()
+
+    def reset_records(self):
         self.mpjpe_all: list[float] = []
         self.pampjpe_all: list[float] = []
         self.pve_all: list[float] = []
@@ -68,37 +141,225 @@ class StreamRunner:
         self.step_stats: dict[int, tuple] = {}
         self.optim_step_record: list[int] = []
         self.step_times: list[float] = []
+        self.reset_count = 0
+        self.ckpt_failures = 0
+        self.ckpt_skipped = 0
         self.frames_seen = 0
+        self._first_flush_frames = 0
+        # frames_seen at the last accepted periodic submit: the run-end
+        # checkpoint is skipped when that write already holds the final state
+        self._ckpt_submitted_frames = -1
+
+    def reset_state(self, params, batch_size: int = 1,
+                    img_res: int = constants.IMG_RES) -> AdaptState:
+        """Divergence remedy: a fresh state from ``params``."""
+        return self.engine.init_state(params, batch_size=batch_size,
+                                      img_res=img_res)
+
+    @staticmethod
+    def _reset_weights(state: AdaptState, template: dict) -> None:
+        """Copy the initial weights into the live params and teacher and
+        start a new Adam over the same tensors; the state's dicts, history,
+        step and rng are kept."""
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(template[k])
+                state.teacher_params[k].copy_(template[k])
+        opt = state.optimizer
+        state.optimizer = type(opt)(list(state.params.values()),
+                                    **opt.defaults)
 
     def run(self, stream, init_state: AdaptState, keypoint_source: str = "gt",
-            max_frames: int | None = None, chunk_size: int = 1,
-            window_size: int = 1) -> tuple[AdaptState, dict]:
-        """Adapt frame by frame.  Each frame's time runs from its upload to
-        its outputs on the host, so it covers all device work of the step."""
-        if chunk_size != 1 or window_size != 1:
-            raise NotImplementedError(
-                "chunked and windowed modes are not ported")
+            resume_from: str | None = None, max_frames: int | None = None,
+            chunk_size: int = 1, window_size: int = 1,
+            auto_reset: bool = False) -> tuple[AdaptState, dict]:
+        """Adapt over ``stream``.  ``init_state`` must be built with
+        ``batch_size=window_size``; ``state.step`` counts engine steps
+        (windows), so a resumed run starts at frame ``step * window_size``.
+        ``max_frames`` is the absolute frame index to stop before."""
+        reset_template = None
+        if auto_reset:
+            # the initial weights, taken before any resume: a reset restores
+            # the pristine model, not a possibly degraded checkpoint
+            reset_template = {k: v.detach().to("cpu", copy=True)
+                              for k, v in init_state.params.items()}
+
         state = init_state
+        start = 0
+        if resume_from and osp.exists(resume_from):
+            state = load_state(resume_from, init_state)
+            start = state.step
+            print(f"---> resumed at step {start}")
+
+        n_total = len(stream)
         device = self.engine.device
-        for i, item in enumerate(iter(stream)):
-            if max_frames is not None and i >= max_frames:
-                break
-            t0 = time.perf_counter()
-            frame = frame_from_item(item, device, keypoint_source)
-            state, out = self.engine.step(state, frame)
-            out = _to_host(out)
-            self.step_times.append(time.perf_counter() - t0)
-            self._record(i, out)
-            if (i + 1) % self.log_every == 0 and self.mpjpe_all:
-                print(f"Step:{i}: MPJPE:{np.mean(self.mpjpe_all):.2f}, "
-                      f"PAMPJPE:{np.mean(self.pampjpe_all):.2f}, "
-                      f"PVE:{np.mean(self.pve_all):.2f}, "
-                      f"{1.0 / np.mean(self.step_times[-self.log_every:]):.2f}"
-                      f" fps")
-        summary = self.finalize(len(stream))
+        prof = self._start_profile(device)
+        pending: list[tuple[int, Frame, int]] = []   # (first index, frame, n)
+        chunk_t0 = None
+
+        def add(i0: int, build, n_real: int):
+            nonlocal chunk_t0
+            if chunk_t0 is None:
+                chunk_t0 = time.perf_counter()
+            pending.append((i0, build(), n_real))
+
+        def flush():
+            nonlocal state, chunk_t0
+            if not pending:
+                return
+            state, outs = self.engine.run_chunk(
+                state, [f for _, f, _ in pending])
+            outs = _to_host(outs)
+            n_frames = sum(n for _, _, n in pending)
+            dt = (time.perf_counter() - chunk_t0) / n_frames
+            chunk_t0 = None
+            if not self._first_flush_frames:
+                self._first_flush_frames = n_frames
+            diverged_at = None
+            for (i0, _, n_real), out in zip(pending, outs):
+                rows = ([out] if window_size == 1
+                        else split_window_out(out, n_real))
+                for j, o in enumerate(rows):
+                    self.step_times.append(dt)
+                    self._record(i0 + j, o)
+                if reset_template is not None and diverged_at is None \
+                        and _diverged(out):
+                    diverged_at = i0
+            pending.clear()
+            if diverged_at is not None:
+                self.reset_count += 1
+                print(f"---> non-finite adaptation detected at frame "
+                      f"{diverged_at}; resetting model/teacher/optimizer "
+                      f"(reset #{self.reset_count})")
+                self._reset_weights(state, reset_template)
+
+        try:
+            win_items: list[tuple[int, dict]] = []
+            for i, item in enumerate(iter(stream)):
+                if i < start * window_size:
+                    continue
+                if max_frames is not None and i >= max_frames:
+                    break
+                if window_size == 1:
+                    add(i, lambda: frame_from_item(item, device,
+                                                   keypoint_source), 1)
+                else:
+                    win_items.append((i, item))
+                    if len(win_items) == window_size:
+                        items = [it for _, it in win_items]
+                        add(win_items[0][0], lambda: frame_from_window(
+                            items, device, keypoint_source), window_size)
+                        win_items = []
+                if len(pending) >= chunk_size:
+                    flush()
+                if self.checkpoint_every and \
+                        (i + 1) % self.checkpoint_every == 0:
+                    flush()
+                    self._checkpoint(state)
+                if (i + 1) % self.log_every == 0 and self.mpjpe_all:
+                    print(f"Step:{i}: MPJPE:{np.mean(self.mpjpe_all):.2f}, "
+                          f"PAMPJPE:{np.mean(self.pampjpe_all):.2f}, "
+                          f"PVE:{np.mean(self.pve_all):.2f}, "
+                          f"{1.0 / np.mean(self.step_times[-self.log_every:]):.2f}"
+                          f" fps")
+            if win_items:
+                # final partial window: pad with the last real frame and mask
+                # the pad rows out of every loss; only real rows are recorded
+                T = len(win_items)
+                items = [it for _, it in win_items]
+
+                def padded():
+                    fr = frame_from_window(
+                        items + [items[-1]] * (window_size - T), device,
+                        keypoint_source)
+                    mask = torch.zeros((window_size,), dtype=torch.float32,
+                                       device=device)
+                    mask[:T] = 1.0
+                    return fr._replace(mask=mask)
+
+                add(win_items[0][0], padded, T)
+                print(f"---> final window padded: {T} real + "
+                      f"{window_size - T} masked pad frames")
+            flush()
+            if self.checkpoint_every and self.frames_seen:
+                self._final_checkpoint(state)
+        finally:
+            try:
+                self._ckpt.wait()
+            except RuntimeError as e:
+                self.ckpt_failures += 1
+                print(f"---> WARNING: final {e}; run results are unaffected")
+            finally:
+                self._ckpt.close()
+                self._stop_profile(prof)
+
+        summary = self.finalize(n_total)
+        summary["engine_steps"] = state.step
         summary["param_devices"] = sorted({str(p.device)
                                            for p in state.params.values()})
         return state, summary
+
+    # -- checkpoints -----------------------------------------------------------
+
+    def _checkpoint(self, state: AdaptState) -> None:
+        """Non-blocking periodic checkpoint: an interval whose predecessor
+        is still being written is skipped (and counted), and a write
+        failure is counted and reported without stopping the run."""
+        try:
+            if self._ckpt.submit(osp.join(self.exppath, "checkpoint.npz"),
+                                 state, block=False):
+                self._ckpt_submitted_frames = self.frames_seen
+            else:
+                self.ckpt_skipped += 1
+                print(f"---> checkpoint interval skipped ({self.ckpt_skipped}"
+                      f" so far; the previous write is still in flight)")
+        except RuntimeError as e:
+            self.ckpt_failures += 1
+            print(f"---> WARNING: {e}; run continues, the checkpoint is "
+                  f"retried at the next interval")
+
+    def _final_checkpoint(self, state: AdaptState) -> None:
+        """One blocking checkpoint of the final state, unless the last
+        periodic write already holds it and completed cleanly.  A stale
+        failure of an earlier write surfaces in the first attempt, so the
+        write is retried once."""
+        if self._ckpt_submitted_frames == self.frames_seen:
+            try:
+                self._ckpt.wait()
+                return
+            except RuntimeError:
+                self.ckpt_failures += 1
+        for attempt in range(2):
+            try:
+                self._ckpt.submit(osp.join(self.exppath, "checkpoint.npz"),
+                                  state, block=True)
+                return
+            except RuntimeError as e:
+                self.ckpt_failures += 1
+                if attempt == 1:
+                    print(f"---> WARNING: {e}; run results are unaffected; "
+                          f"the final checkpoint was not saved")
+
+    # -- profiling -------------------------------------------------------------
+
+    def _start_profile(self, device):
+        if not self.profile_dir:
+            return None
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if prof is None:
+            return
+        prof.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(osp.join(self.profile_dir, "trace.json"))
+
+    # -- records ---------------------------------------------------------------
 
     def _record(self, i: int, out: dict):
         scalars = {}
@@ -144,8 +405,9 @@ class StreamRunner:
             scalars["feat_sim/tap12"] = float(sims[12])
         if "per_step_sims" in out:
             nupd = int(out["optim_steps"]) + 1
-            self.step_sims[i] = np.asarray(out["per_step_sims"])[:nupd]
-            self.step_losses[i] = np.asarray(out["per_step_loss"])[:nupd]
+            self.step_sims[i] = np.asarray(out["per_step_sims"])[:nupd].copy()
+            self.step_losses[i] = np.asarray(
+                out["per_step_loss"])[:nupd].copy()
             if "per_step_mpjpe" in out:
                 self.step_stats[i] = tuple(
                     np.asarray(out[k])[:nupd].mean(-1)
@@ -184,10 +446,11 @@ class StreamRunner:
         def mean(v):
             return float(np.mean(v)) if len(v) else float("nan")
 
-        # the first frame carries the one-off costs (kernel build, cuDNN
-        # and allocator warm-up); report steady state when there is more
-        steady = self.step_times[1:] if len(self.step_times) > 1 \
-            else self.step_times
+        # the first flush carries the one-off costs (kernel build, cuDNN and
+        # allocator warm-up); report steady state when there is more
+        first_n = self._first_flush_frames
+        steady = (self.step_times[first_n:]
+                  if len(self.step_times) > first_n else self.step_times)
         summary = {
             "mpjpe": mean(self.mpjpe_all),
             "pampjpe": mean(self.pampjpe_all),
@@ -196,7 +459,11 @@ class StreamRunner:
             "frames_total": n_total,
             "fps": 1.0 / mean(steady) if steady else 0.0,
             "first_frame_s": self.step_times[0] if self.step_times else 0.0,
+            "first_flush_frames": first_n,
             "optim_steps": list(self.optim_step_record),
+            "reset_count": self.reset_count,
+            "checkpoint_failures": self.ckpt_failures,
+            "checkpoint_skipped": self.ckpt_skipped,
         }
         print("--- Final ---")
         print(f"MPJPE:{summary['mpjpe']}, PAMPJPE:{summary['pampjpe']}, "

@@ -24,7 +24,10 @@ def similarity_transform(S1: torch.Tensor, S2: torch.Tensor) -> torch.Tensor:
 
     var1 = torch.sum(X1c ** 2, dim=(-1, -2))
     K = X1c @ X2c.transpose(-1, -2)                        # (B, 3, 3)
-    U, _, Vh = torch.linalg.svd(K)
+    # a non-finite sample (a diverged prediction) gives NaN, as in the JAX
+    # package, instead of an SVD error
+    finite = torch.isfinite(K).all(dim=(-1, -2))
+    U, _, Vh = torch.linalg.svd(torch.where(finite[:, None, None], K, 0.0))
     V = Vh.transpose(-1, -2)
 
     # det correction to ensure a proper rotation
@@ -37,6 +40,7 @@ def similarity_transform(S1: torch.Tensor, S2: torch.Tensor) -> torch.Tensor:
     scale = trace_RK / var1
     t = mu2 - scale[:, None, None] * (R @ mu1)
     S1_hat = scale[:, None, None] * (R @ X1) + t
+    S1_hat = torch.where(finite[:, None, None], S1_hat, torch.nan)
     return S1_hat.transpose(-1, -2)
 
 

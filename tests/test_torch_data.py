@@ -3,6 +3,7 @@ package's, and the rule that the port never imports jax."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -19,6 +20,7 @@ from dynaboa_tpu_torch.data.streams import SyntheticStream as TStream
 from dynaboa_tpu_torch.engine import retrieval as tret
 from dynaboa_tpu_torch.engine.runner import frame_from_item
 from dynaboa_tpu_torch.metrics.writer import ScalarWriter as TWriter
+from tests import torch_port_fixtures  # noqa: F401  (shares the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -122,3 +124,14 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(mods) >= 20
+
+
+def test_chip_smoke_names_no_jax_module():
+    """chip_smoke.py drives the port alone: it names no module of the JAX
+    package (only the port reaches its constants and config) and no jax."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    assert "dynaboa_tpu_torch" in src
+    assert not re.findall(r"\bdynaboa_tpu\.|import dynaboa_tpu\b", src)
+    assert not re.findall(r"^\s*(?:import|from)\s+(?:jax|flax|optax)\b", src,
+                          re.M)

@@ -39,9 +39,10 @@ def _inputs(n, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 3, 5])
+@pytest.mark.parametrize("n", [1, 3, 5, 8])
 def test_kernel_matches_eager_lbs(cuda_device, n):
-    """N=5 covers a partial second sample group of the kernel."""
+    """N=5 covers a partial second sample group of the kernel; N=8 is the
+    windowed path's batch, two full groups."""
     model = tsmpl.synthetic_smpl_model(10, cuda_device)
     betas, rotmats = _inputs(n, cuda_device, seed=n)
     before = klbs.skin.launches

@@ -13,6 +13,7 @@ from dynaboa_tpu_torch.ops import camera as tcam
 from dynaboa_tpu_torch.ops import procrustes as tpro
 from dynaboa_tpu_torch.ops import rotations as trot
 from tests.test_rotations import random_rotmats
+from tests import torch_port_fixtures  # noqa: F401  (shares the cores)
 
 ATOL = 1e-5   # fp32, same formulas; XLA and torch may fuse differently
 

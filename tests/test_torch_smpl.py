@@ -12,6 +12,7 @@ from dynaboa_tpu.models import smpl as jsmpl
 from dynaboa_tpu_torch.kernels import lbs as klbs
 from dynaboa_tpu_torch.models import smpl as tsmpl
 from tests.test_rotations import random_rotmats
+from tests import torch_port_fixtures  # noqa: F401  (shares the cores)
 
 CPU = torch.device("cpu")
 # fp32 with another summation order over 207 + 24 terms

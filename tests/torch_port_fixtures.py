@@ -7,6 +7,8 @@ and frames come from the same numpy seeds.  Sizes follow tests/test_engine.py.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,21 @@ from dynaboa_tpu_torch.losses.priors import synthetic_gmm_prior as t_prior
 from dynaboa_tpu_torch.metrics.eval import GenderedSMPL as TGenderedSMPL
 from dynaboa_tpu_torch.models.hmr import HMR as THMR, params_from_jax
 from dynaboa_tpu_torch.models.smpl import synthetic_smpl_model as t_smpl
+
+
+
+def _share_cores_between_test_workers():
+    """Under pytest-xdist each worker process has its own torch thread pool
+    of one thread per core; the spinning OpenMP threads of several workers
+    on the same cores slowed the port's tests about sevenfold.  Each worker
+    takes its share of the cores instead.  Every tests/test_torch_* module
+    that runs torch work imports this module, so this runs in each worker."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
+
+
+_share_cores_between_test_workers()
 
 IMG = 32
 WIDTH = 16
