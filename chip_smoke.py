@@ -5,10 +5,17 @@
 
 Phases, each of which raises (non-zero exit) on failure:
   0. the card: name and power limit from nvidia-smi
-  1. build the Hopper skinning kernel from dynaboa_tpu_torch/csrc with nvcc
+  1. build the Hopper skinning kernel from dynaboa_tpu_torch/csrc with nvcc;
+     print ptxas' registers, shared memory and spills, and each tile's
+     dynamic shared memory and CTAs per SM
   2. the kernel against its plain PyTorch version at full SMPL size
-     (V = 6890), N = 1, 3 and 8, identity and random poses; times at N = 1
-     (the per-frame path) and N = 8 (the window batch)
+     (V = 6890), N = 1, 3 and 8, identity and random poses, and two launches
+     bit-equal; times at N = 1 (the per-frame path) and N = 8 (the window
+     batch), hot and cold L2, beside the HBM bound, the share of it reached,
+     the one library call that reads the same posedirs stream (the
+     pose-blend product alone), an empty kernel and a library call that only
+     reads the stream, all under the same timing, and the kernel's grid
+     geometries (vertices per CTA x warps), each checked and timed
   3. the main path: the port's 3DPW benchmark CLI, 8 synthetic frames of
      per-frame dynamic bilevel adaptation at full width (ResNet-50-GN,
      224^2, V = 6890) with the skinning kernel on; the kernel's launch count
@@ -50,6 +57,9 @@ RESUME_W = 4
 RESUME_FRAMES, RESUME_STOP = 12, 8
 KERNEL_ATOL = 1e-5     # fp32, different summation order over 207 + 24 terms
 KERNEL_RTOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
+GEOMETRIES = ((32, 8), (32, 4), (64, 8))   # (vertices per CTA, warps per CTA)
 LOSS_RTOL = 2e-3       # the port's CPU/JAX parity tolerance for losses
 METRIC_ATOL_MM = 0.05
 
@@ -91,6 +101,17 @@ def time_cuda(fn, iters: int = 200, flush=None) -> float:
     return statistics.median(times)
 
 
+def skin_bound(n: int, V: int):
+    """Least time of one skinning call on the card: each input read once,
+    each output written once, over the HBM rate, against the operations
+    over the fp32 rate.  Returns (ms, 'bytes' or 'operations', bytes)."""
+    nbytes = 4 * (207 * 3 * V + 24 * V + n * 2 * 3 * V + n * (207 + 24 * 16))
+    flops = n * V * (2 * 207 * 3 + 3 + 24 * 24)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
 def kernel_phase(torch, dev):
     from dynaboa_tpu_torch.kernels import lbs as klbs
     from dynaboa_tpu_torch.models import smpl as tsmpl
@@ -118,8 +139,8 @@ def kernel_phase(torch, dev):
     def plain_args(betas, rot):
         v_shaped, J = tsmpl.shaped_vertices_and_joints(model, betas)
         _, rel = tsmpl._rigid_transform_chain(rot, J, model.parents)
-        return (tsmpl.pose_features(rot), sk.posedirs_k,
-                v_shaped.contiguous(), sk.weights_k, rel.contiguous())
+        return (tsmpl.pose_features(rot), sk.posedirs_t,
+                v_shaped.contiguous(), sk.weights_t, rel.contiguous())
 
     max_err = 0.0
     with torch.no_grad():
@@ -145,6 +166,8 @@ def kernel_phase(torch, dev):
             max_err = max(max_err, err)
             print(f"kernel vs plain N={n} identity={identity}: max abs err "
                   f"{err:.3e}", flush=True)
+            if not torch.equal(klbs.skin(*plain_args(betas, rot)), verts):
+                raise RuntimeError(f"two launches differ at N={n}")
 
         # times at the per-frame path's shape (N = 1) and the window
         # batch's (N = 8), hot and cold L2
@@ -153,23 +176,90 @@ def kernel_phase(torch, dev):
         def flush():
             scrub.zero_()
 
+        V = model.v_template.shape[0]
         times = {}
         for n in (1, WINDOW):
             args = plain_args(*inputs(n, False))
+            pf = args[0]
+            bound_ms, bound_by, nbytes = skin_bound(n, V)
             for label, fl in (("hot", None), ("cold", flush)):
-                # plain, kernel, kernel, plain: both see the same conditions
+                # plain, library, kernel, kernel, library, plain: all see the
+                # same conditions
                 p1 = time_cuda(lambda: klbs.skin_plain(*args), flush=fl)
+                l1 = time_cuda(lambda: torch.matmul(pf, model.posedirs),
+                               flush=fl)
                 k1 = time_cuda(lambda: klbs.skin(*args), flush=fl)
                 k2 = time_cuda(lambda: klbs.skin(*args), flush=fl)
+                l2 = time_cuda(lambda: torch.matmul(pf, model.posedirs),
+                               flush=fl)
                 p2 = time_cuda(lambda: klbs.skin_plain(*args), flush=fl)
-                times[n, label] = (min(k1, k2), min(p1, p2))
+                t = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         library_ms=min(l1, l2), bound_ms=bound_ms,
+                         bound_by=bound_by,
+                         share_of_bound=bound_ms / min(k1, k2))
+                times[n, label] = t
                 print(f"lbs_skin N={n} {label} L2: kernel "
-                      f"{times[n, label][0] * 1e3:.2f} us  plain "
-                      f"{times[n, label][1] * 1e3:.2f} us (device time: "
+                      f"{t['ms'] * 1e3:.2f} us  plain "
+                      f"{t['plain_ms'] * 1e3:.2f} us  library (partial: the "
+                      f"pose-blend product alone, torch.matmul(pose_feature,"
+                      f" posedirs)) {t['library_ms'] * 1e3:.2f} us  bound "
+                      f"{bound_ms * 1e3:.2f} us ({nbytes} B over "
+                      f"{HBM_BYTES_PER_S / 1e12} TB/s, by {bound_by})  share "
+                      f"of bound {t['share_of_bound']:.3f} (device time: "
                       f"median of 200 CUDA-event timings, better of 2 "
                       f"rounds)", flush=True)
+
+        # what the timing itself costs, and what a library call takes only to
+        # read the same posedirs stream, under the same method
+        tiny = torch.empty(1, device=dev)
+        reader = sk.posedirs_t.view(sk.posedirs_t.shape[0], -1)
+        floors = {}
+        for label, fl in (("hot", None), ("cold", flush)):
+            floors[label] = dict(
+                launch_floor_ms=min(time_cuda(tiny.zero_, flush=fl)
+                                    for _ in range(2)),
+                read_ms=min(time_cuda(lambda: reader.sum(1), flush=fl)
+                            for _ in range(2)))
+            print(f"floors, {label} L2: an empty kernel "
+                  f"{floors[label]['launch_floor_ms'] * 1e3:.2f} us; "
+                  f"per-tile torch.sum over the {sk.posedirs_t.numel() * 4} "
+                  f"B of tile-major posedirs (reads the stream, nothing "
+                  f"else) "
+                  f"{floors[label]['read_ms'] * 1e3:.2f} us", flush=True)
+        for (n, label), t in times.items():
+            t.update(floors[label])
+
+        # the kernel's grid geometries, timed in turns in this call
+        geometries = []
+        for tile, warps in GEOMETRIES:
+            gk = klbs.LBSKernelSMPL(model, tile=tile)
+            row = dict(tile=tile, warps=warps, ctas=-(-V // tile),
+                       smem_bytes=klbs.library().lib.lbs_skin_smem_bytes(tile),
+                       ctas_per_sm=klbs.library().lib.lbs_skin_blocks_per_sm(
+                           tile, warps, dev.index or 0))
+            for n in (1, WINDOW):
+                b, r = inputs(n, False)
+                a = plain_args(b, r)
+                a = (a[0], gk.posedirs_t, a[2], gk.weights_t, a[4])
+                err = float((klbs.skin(*a, warps=warps)
+                             - klbs.skin_plain(*a)).abs().max())
+                if not err <= KERNEL_ATOL:
+                    raise RuntimeError(f"geometry {tile}x{warps} N={n}: "
+                                       f"max abs err {err}")
+                for label, fl in (("hot", None), ("cold", flush)):
+                    row[f"ms_n{n}_{label}"] = min(
+                        time_cuda(lambda: klbs.skin(*a, warps=warps),
+                                  flush=fl) for _ in range(2))
+            geometries.append(row)
+            print(f"geometry: {row['ctas']} CTAs of {tile} vertices x "
+                  f"{warps} warps, {row['smem_bytes']} B dynamic shared "
+                  f"memory, {row['ctas_per_sm']} CTAs per SM: N=1 cold "
+                  f"{row['ms_n1_cold'] * 1e3:.2f} us hot "
+                  f"{row['ms_n1_hot'] * 1e3:.2f} us; N={WINDOW} cold "
+                  f"{row[f'ms_n{WINDOW}_cold'] * 1e3:.2f} us hot "
+                  f"{row[f'ms_n{WINDOW}_hot'] * 1e3:.2f} us", flush=True)
         torch.cuda.synchronize()
-    return max_err, times
+    return max_err, times, geometries
 
 
 def main_path_phase(torch, tmp):
@@ -448,10 +538,16 @@ def main() -> int:
     built = klbs.library()
     print(f"built {built.path} in {built.seconds:.1f} s", flush=True)
     print("\n".join(line for line in built.ptxas_log.splitlines()
-                    if "registers" in line or "smem" in line), flush=True)
+                    if any(w in line for w in ("Compiling", "registers",
+                                               "smem", "spill"))),
+          flush=True)
+    for tile in klbs.TILES:
+        print(f"tile {tile}: {built.lib.lbs_skin_smem_bytes(tile)} B dynamic "
+              f"shared memory, {built.lib.lbs_skin_blocks_per_sm(tile, klbs.WARPS, 0)}"
+              f" CTAs of {klbs.WARPS} warps per SM", flush=True)
 
     phase("2 kernel vs plain, V=6890")
-    max_err, times = kernel_phase(torch, dev)
+    max_err, times, geometries = kernel_phase(torch, dev)
 
     phase(f"3 main path, {N_FRAMES} frames at full width")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -473,11 +569,18 @@ def main() -> int:
         "source": "dynaboa_tpu_torch/csrc/lbs_skin.cu",
         "replaces": "dynaboa_tpu/kernels/lbs.py:45",
         "launches": launches, "max_abs_err": max_err,
-        "ms": times[1, "cold"][0], "plain_ms": times[1, "cold"][1],
-        "ms_n8": times[WINDOW, "cold"][0],
-        "plain_ms_n8": times[WINDOW, "cold"][1],
+        **times[1, "cold"],
+        **{f"{k}_n8": v for k, v in times[WINDOW, "cold"].items()
+           if k not in ("launch_floor_ms", "read_ms")},
+        **{f"{k}_hot": v for k, v in times[1, "hot"].items()
+           if k not in ("bound_ms", "bound_by")},
+        **{f"{k}_n8_hot": v for k, v in times[WINDOW, "hot"].items()
+           if k in ("ms", "plain_ms", "library_ms", "share_of_bound")},
+        "library_call": "torch.matmul(pose_feature, posedirs) (partial: "
+                        "the pose-blend product alone)",
         "launches_by_path": {"per_frame": launches, "windowed": launches_w,
                              "resume": launches_r, "internet": launches_i},
+        "geometries": geometries,
     }]
     print(info)
     print(json.dumps({"kernels": kernels}))

@@ -106,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def cfg_from_args(args):
-    from dynaboa_tpu.config import AdaptConfig
+    from dynaboa_tpu_torch.config import AdaptConfig
 
     return AdaptConfig(
         lr=args.lr, beta1=args.beta1, beta2=args.beta2,
@@ -161,7 +161,7 @@ def main(argv=None):
     exppath = osp.join(args.expdir, args.expname)
     os.makedirs(exppath, exist_ok=True)
 
-    from dynaboa_tpu.config import Paths
+    from dynaboa_tpu_torch.config import Paths
     from dynaboa_tpu_torch.apps.common import build_system, write_settings
     from dynaboa_tpu_torch.data.streams import PW3DStream, SyntheticStream
 

@@ -12,8 +12,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dynaboa_tpu import constants
-from dynaboa_tpu.config import AdaptConfig, Paths
+from dynaboa_tpu_torch import constants
+from dynaboa_tpu_torch.config import AdaptConfig, Paths
 from dynaboa_tpu_torch.engine.bilevel import BilevelEngine
 from dynaboa_tpu_torch.engine.retrieval import (RetrievalStore,
                                                 load_reference_store,

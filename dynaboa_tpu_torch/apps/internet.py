@@ -33,7 +33,7 @@ def main(argv=None):
     exppath = osp.join(args.expdir, args.expname)
     os.makedirs(exppath, exist_ok=True)
 
-    from dynaboa_tpu.config import Paths
+    from dynaboa_tpu_torch.config import Paths
     from dynaboa_tpu_torch.apps.common import build_system, write_settings
     from dynaboa_tpu_torch.data.streams import InternetStream, SyntheticStream
 

@@ -99,7 +99,7 @@ def device_busy(trace_path: str) -> tuple[int, float, float]:
 
 def profile_section(tmp: str, device: str, threshold: float, warm: int,
                     frames: int) -> None:
-    from dynaboa_tpu.config import AdaptConfig, Paths
+    from dynaboa_tpu_torch.config import AdaptConfig, Paths
     from dynaboa_tpu_torch.apps.common import build_system
     from dynaboa_tpu_torch.data.streams import SyntheticStream
     from dynaboa_tpu_torch.engine.runner import frame_from_item
@@ -136,7 +136,7 @@ def profile_section(tmp: str, device: str, threshold: float, warm: int,
 
 def kernel_ab_section(tmp: str, device: str, rounds: int = 4,
                       block: int = 4) -> None:
-    from dynaboa_tpu.config import AdaptConfig, Paths
+    from dynaboa_tpu_torch.config import AdaptConfig, Paths
     from dynaboa_tpu_torch.apps.common import build_system
     from dynaboa_tpu_torch.data.streams import SyntheticStream
     from dynaboa_tpu_torch.engine.runner import frame_from_item
@@ -184,7 +184,7 @@ def kernel_ab_section(tmp: str, device: str, rounds: int = 4,
 
 def window_section(tmp: str, device: str, W: int = 8, rounds: int = 4,
                    warm: int = 2) -> None:
-    from dynaboa_tpu.config import AdaptConfig, Paths
+    from dynaboa_tpu_torch.config import AdaptConfig, Paths
     from dynaboa_tpu_torch.apps.common import build_system
     from dynaboa_tpu_torch.data.streams import SyntheticStream
     from dynaboa_tpu_torch.engine.runner import (frame_from_item,
@@ -239,7 +239,7 @@ def window_section(tmp: str, device: str, W: int = 8, rounds: int = 4,
 
 
 def checkpoint_section(tmp: str, device: str, rounds: int = 3) -> None:
-    from dynaboa_tpu.config import AdaptConfig
+    from dynaboa_tpu_torch.config import AdaptConfig
     from dynaboa_tpu_torch.apps.common import build_system
     from dynaboa_tpu_torch.engine import checkpoint as ck
 

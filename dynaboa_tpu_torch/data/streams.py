@@ -22,7 +22,7 @@ from typing import Iterator
 
 import numpy as np
 
-from dynaboa_tpu import constants
+from dynaboa_tpu_torch import constants
 from dynaboa_tpu_torch.ops import image as I
 
 

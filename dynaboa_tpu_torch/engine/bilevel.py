@@ -43,7 +43,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.func import functional_call
 
-from dynaboa_tpu.config import AdaptConfig
+from dynaboa_tpu_torch.config import AdaptConfig
 from dynaboa_tpu_torch.engine.retrieval import RetrievalStore, retrieve
 from dynaboa_tpu_torch.kernels.lbs import LBSKernelSMPL
 from dynaboa_tpu_torch.losses.adaptation import (

@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from dynaboa_tpu import constants
+from dynaboa_tpu_torch import constants
 from dynaboa_tpu_torch.engine.bilevel import AdaptState, BilevelEngine, Frame
 from dynaboa_tpu_torch.engine.checkpoint import AsyncCheckpointer, load_state
 from dynaboa_tpu_torch.metrics.writer import ScalarWriter

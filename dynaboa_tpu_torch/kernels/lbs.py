@@ -5,12 +5,19 @@ It replaces the Pallas kernel ``dynaboa_tpu/kernels/lbs.py:_skin_kernel``
 pose-blendshape contraction and the linear blend skinning of every vertex,
 in one pass over posedirs.
 
-What bounds it on the H100: at N=1 it reads posedirs once (207*6890*3*4 B =
-17.1 MB) and the skinning weights (0.66 MB) and does about 8.6 MFLOP, so it
-is memory- and latency-bound; the HBM floor is about 5 us at the H100 SXM's
-data-sheet 3.35 TB/s (700 W part; derived, not measured).  The source note in
-``csrc/lbs_skin.cu`` says what the design does about that; measured times
-are in the root PERF.md.
+What bounds it on the H100: it must read posedirs (207*3*6890*4 B =
+17.1 MB) and the skinning weights (0.66 MB) once per call, whatever N, and
+does about 12.5 MFLOP per sample, so it is memory-bound: 17.94 MB at N = 1
+is 5.36 us at the H100 SXM's data-sheet 3.35 TB/s (derived, not measured).
+The source note in ``csrc/lbs_skin.cu`` says what the design does about
+that; measured times are in the root PERF.md.
+
+The kernel reads the model's buffers in a tile-major layout built once by
+``LBSKernelSMPL``: V padded to a multiple of the tile T (32 vertices by
+default), posedirs as (V/T, 207, 3, T) and the weights as (V/T, 24, T), so
+that each tile is one contiguous block that a bulk copy can fetch.
+``to_tiles`` builds it, ``from_tiles`` undoes it; the plain version takes
+the same layout.
 
 ``LBSKernelSMPL(model)(betas, rotmats)`` has the contract of the JAX
 ``PallasSMPL``: the shape blendshapes, rest joints and kinematic chain stay
@@ -34,6 +41,9 @@ from dynaboa_tpu_torch.models.smpl import (SMPLModel, _rigid_transform_chain,
 
 NUM_JOINTS = 24
 POSE_FEATS = 207
+TILE = 32              # vertices per tile, one CTA each (216 at V = 6890)
+TILES = (32, 64)       # the tiles the kernel is built for
+WARPS = 8              # warps per CTA
 
 _built = {}     # the loaded library, built at the first CUDA launch
 
@@ -45,24 +55,45 @@ def library():
 
         b = build("lbs_skin")
         fn = b.lib.lbs_skin_forward
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        b.lib.lbs_skin_smem_bytes.argtypes = [ctypes.c_int]
+        b.lib.lbs_skin_smem_bytes.restype = ctypes.c_int
+        b.lib.lbs_skin_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        b.lib.lbs_skin_blocks_per_sm.restype = ctypes.c_int
         _built["lbs_skin"] = b
     return _built["lbs_skin"]
 
 
-def skin_plain(pose_feature, posedirs_k, v_shaped, weights_k, rel):
+def to_tiles(a: torch.Tensor, tile: int = TILE) -> torch.Tensor:
+    """(..., V) -> (ceil(V / tile), ..., tile): the kernel's tile-major
+    layout, zero-padded to whole tiles and contiguous."""
+    V = a.shape[-1]
+    n_tiles = -(-V // tile)
+    a = torch.nn.functional.pad(a, (0, n_tiles * tile - V))
+    return a.reshape(*a.shape[:-1], n_tiles, tile).movedim(-2, 0).contiguous()
+
+
+def from_tiles(a: torch.Tensor, V: int) -> torch.Tensor:
+    """Inverse of ``to_tiles``: (n_tiles, ..., tile) -> (..., V)."""
+    return a.movedim(0, -2).flatten(-2)[..., :V]
+
+
+def skin_plain(pose_feature, posedirs_t, v_shaped, weights_t, rel):
     """Plain PyTorch version of the kernel, same arguments as ``skin``."""
-    offsets = torch.einsum("np,pcv->nvc", pose_feature, posedirs_k)
+    V = v_shaped.shape[1]
+    offsets = torch.einsum("np,pcv->nvc", pose_feature,
+                           from_tiles(posedirs_t, V))
     v_posed = v_shaped + offsets
-    T = torch.einsum("kv,nkij->nvij", weights_k, rel[:, :, :3])   # (N,V,3,4)
+    T = torch.einsum("kv,nkij->nvij", from_tiles(weights_t, V),
+                     rel[:, :, :3])                               # (N,V,3,4)
     return (T[..., :3] @ v_posed[..., None])[..., 0] + T[..., 3]
 
 
-def _check(pose_feature, posedirs_k, v_shaped, weights_k, rel):
-    args = dict(pose_feature=pose_feature, posedirs_k=posedirs_k,
-                v_shaped=v_shaped, weights_k=weights_k, rel=rel)
+def _check(pose_feature, posedirs_t, v_shaped, weights_t, rel):
+    args = dict(pose_feature=pose_feature, posedirs_t=posedirs_t,
+                v_shaped=v_shaped, weights_t=weights_t, rel=rel)
     for name, t in args.items():
         if t.dtype != torch.float32:
             raise TypeError(f"skin: {name} must be float32, got {t.dtype}")
@@ -72,8 +103,14 @@ def _check(pose_feature, posedirs_k, v_shaped, weights_k, rel):
             raise ValueError(f"skin: {name} is on {t.device}, pose_feature "
                              f"on {pose_feature.device}")
     N, V = v_shaped.shape[0], v_shaped.shape[1]
-    want = dict(pose_feature=(N, POSE_FEATS), posedirs_k=(POSE_FEATS, 3, V),
-                v_shaped=(N, V, 3), weights_k=(NUM_JOINTS, V),
+    tile = posedirs_t.shape[-1]
+    if tile not in TILES:
+        raise ValueError(f"skin: posedirs_t has tile {tile}, expected one "
+                         f"of {TILES}")
+    n_tiles = -(-V // tile)
+    want = dict(pose_feature=(N, POSE_FEATS),
+                posedirs_t=(n_tiles, POSE_FEATS, 3, tile),
+                v_shaped=(N, V, 3), weights_t=(n_tiles, NUM_JOINTS, tile),
                 rel=(N, NUM_JOINTS, 4, 4))
     for name, shape in want.items():
         if tuple(args[name].shape) != shape:
@@ -84,28 +121,32 @@ def _check(pose_feature, posedirs_k, v_shaped, weights_k, rel):
                            "torch.no_grad() or use the eager smpl lbs")
 
 
-def skin(pose_feature, posedirs_k, v_shaped, weights_k, rel):
+def skin(pose_feature, posedirs_t, v_shaped, weights_t, rel, warps=WARPS):
     """Pose blendshapes + linear blend skinning -> (N, V, 3).
 
     Args:
       pose_feature: (N, 207)
-      posedirs_k: (207, 3, V) kernel layout (``LBSKernelSMPL.posedirs_k``)
+      posedirs_t: (V/T, 207, 3, T) tile-major posedirs (``to_tiles``)
       v_shaped: (N, V, 3) shaped template vertices
-      weights_k: (24, V) joint-major skinning weights
+      weights_t: (V/T, 24, T) tile-major skinning weights
       rel: (N, 24, 4, 4) relative joint transforms
+      warps: warps per CTA of the kernel (1..8)
     """
-    _check(pose_feature, posedirs_k, v_shaped, weights_k, rel)
+    _check(pose_feature, posedirs_t, v_shaped, weights_t, rel)
     dev = pose_feature.device
     if dev.type == "cpu":
-        return skin_plain(pose_feature, posedirs_k, v_shaped, weights_k, rel)
+        return skin_plain(pose_feature, posedirs_t, v_shaped, weights_t, rel)
     if dev.type != "cuda":
         raise ValueError(f"skin: no kernel for device {dev}")
+    if posedirs_t.data_ptr() % 16 or weights_t.data_ptr() % 16:
+        raise ValueError("skin: posedirs_t and weights_t must be 16-byte "
+                         "aligned for the bulk copies")
     N, V = v_shaped.shape[0], v_shaped.shape[1]
     out = torch.empty((N, V, 3), dtype=torch.float32, device=dev)
     err = library().lib.lbs_skin_forward(
-        pose_feature.data_ptr(), posedirs_k.data_ptr(), v_shaped.data_ptr(),
-        weights_k.data_ptr(), rel.data_ptr(), out.data_ptr(), N, V,
-        POSE_FEATS, NUM_JOINTS, dev.index,
+        pose_feature.data_ptr(), posedirs_t.data_ptr(), v_shaped.data_ptr(),
+        weights_t.data_ptr(), rel.data_ptr(), out.data_ptr(), N, V,
+        POSE_FEATS, NUM_JOINTS, posedirs_t.shape[-1], warps, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lbs_skin kernel launch failed with CUDA error "
@@ -120,17 +161,16 @@ skin.launches = 0   # kernel launches (CUDA path only)
 class LBSKernelSMPL:
     """SMPL forward whose skinning runs in the Hopper kernel.
 
-    Holds kernel-layout copies of the model buffers: posedirs (207, 3, V),
-    so neighbouring threads read neighbouring vertices, and joint-major
-    weights (24, V).
+    Holds tile-major copies of the model buffers, built once: posedirs
+    (V/T, 207, 3, T) and weights (V/T, 24, T), V padded to whole tiles.
     """
 
-    def __init__(self, model: SMPLModel):
+    def __init__(self, model: SMPLModel, tile: int = TILE):
         self.model = model
         V = model.v_template.shape[0]
-        self.posedirs_k = model.posedirs.reshape(POSE_FEATS, V, 3).permute(
-            0, 2, 1).contiguous()
-        self.weights_k = model.lbs_weights.t().contiguous()
+        self.posedirs_t = to_tiles(model.posedirs.reshape(
+            POSE_FEATS, V, 3).permute(0, 2, 1), tile)
+        self.weights_t = to_tiles(model.lbs_weights.t(), tile)
 
     def __call__(self, betas: torch.Tensor, rotmats: torch.Tensor):
         """betas (N, 10), rotmats (N, 24, 3, 3) -> vertices (N, V, 3),
@@ -138,6 +178,6 @@ class LBSKernelSMPL:
         v_shaped, J = shaped_vertices_and_joints(self.model, betas)
         posed_joints, rel = _rigid_transform_chain(rotmats, J,
                                                    self.model.parents)
-        verts = skin(pose_features(rotmats), self.posedirs_k,
-                     v_shaped.contiguous(), self.weights_k, rel.contiguous())
+        verts = skin(pose_features(rotmats), self.posedirs_t,
+                     v_shaped.contiguous(), self.weights_t, rel.contiguous())
         return verts, posed_joints

@@ -56,13 +56,12 @@ def load_gmm_prior(path: str, device) -> GMMPrior:
 
 
 def default_gmm_path() -> str | None:
-    """The GMM shipped with the JAX package (``dynaboa_tpu/assets``), then
+    """The GMM shipped with the port (``dynaboa_tpu_torch/assets``), then
     the conventional data dirs."""
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     candidates = [
-        os.path.join(repo, "dynaboa_tpu", "assets", "gmm_08.npz"),
-        os.path.join(repo, "data", "gmm_08.pkl"),
+        os.path.join(pkg, "assets", "gmm_08.npz"),
+        os.path.join(os.path.dirname(pkg), "data", "gmm_08.pkl"),
         "data/gmm_08.pkl",
         "data/spin_data/gmm_08.pkl",
     ]

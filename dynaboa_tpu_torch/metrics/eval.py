@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from dynaboa_tpu import constants
+from dynaboa_tpu_torch import constants
 from dynaboa_tpu_torch.models.smpl import SMPLModel, smpl_forward
 from dynaboa_tpu_torch.ops.procrustes import similarity_transform
 

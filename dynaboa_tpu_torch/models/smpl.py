@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dynaboa_tpu import constants
+from dynaboa_tpu_torch import constants
 from dynaboa_tpu_torch.ops.rotations import batch_rodrigues
 
 # SMPL kinematic tree (public topology).

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from dynaboa_tpu import constants
+from dynaboa_tpu_torch import constants
 
 
 def perspective_projection(

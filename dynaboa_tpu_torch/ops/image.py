@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dynaboa_tpu import constants
+from dynaboa_tpu_torch import constants
 
 
 # -- affine transform bookkeeping (host) -------------------------------------

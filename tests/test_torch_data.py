@@ -104,7 +104,8 @@ def test_scalar_writer_matches_jax_writer(tmp_path):
 
 def test_port_never_imports_jax():
     """Import every module of the port in a fresh interpreter (the test
-    process has jax loaded already) and check jax stayed out."""
+    process has jax loaded already) and check that jax and every module of
+    the JAX package stayed out."""
     pkg = os.path.join(REPO, "dynaboa_tpu_torch")
     mods = []
     for root, _, files in os.walk(pkg):
@@ -114,8 +115,9 @@ def test_port_never_imports_jax():
                 mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     code = ("import importlib, sys\n"
             f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'dynaboa_tpu') or "
+            "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', "
+            "'dynaboa_tpu.'))]\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -128,10 +130,11 @@ def test_port_never_imports_jax():
 
 def test_chip_smoke_names_no_jax_module():
     """chip_smoke.py drives the port alone: it names no module of the JAX
-    package (only the port reaches its constants and config) and no jax."""
+    package and no jax."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         src = f.read()
     assert "dynaboa_tpu_torch" in src
-    assert not re.findall(r"\bdynaboa_tpu\.|import dynaboa_tpu\b", src)
+    assert not re.findall(r"\bdynaboa_tpu\.|import dynaboa_tpu\b|"
+                          r"from dynaboa_tpu\s+import", src)
     assert not re.findall(r"^\s*(?:import|from)\s+(?:jax|flax|optax)\b", src,
                           re.M)

@@ -1,6 +1,8 @@
 """Losses, the GMM prior and the metrics of the port against the JAX
 package, term by term, on the same numpy inputs."""
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -29,7 +31,8 @@ def close(t, j, rtol=RTOL, atol=ATOL):
 @pytest.fixture(scope="module")
 def priors():
     path = tp.default_gmm_path()
-    assert path is not None and path.endswith("dynaboa_tpu/assets/gmm_08.npz")
+    assert path is not None and path.endswith(
+        os.path.join("dynaboa_tpu_torch", "assets", "gmm_08.npz"))
     return jp.load_gmm_prior(path), tp.load_gmm_prior(path, CPU)
 
 

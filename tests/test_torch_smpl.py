@@ -112,6 +112,53 @@ def test_kernel_module_matches_pallas_interpret(models, rng):
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=VERTS_ATOL)
 
 
+@pytest.fixture(scope="module")
+def small_models():
+    """Synthetic bodies by vertex count: full size, the --tiny size and a
+    count that leaves a ragged last tile."""
+    cache = {}
+
+    def get(V):
+        if V not in cache:
+            cache[V] = (jsmpl.synthetic_smpl_model(seed=V, num_vertices=V),
+                        tsmpl.synthetic_smpl_model(V, CPU, num_vertices=V))
+        return cache[V]
+    return get
+
+
+@pytest.mark.parametrize("V", [6890, 256, 100])
+@pytest.mark.parametrize("n", [1, 3])
+def test_tiled_layout_matches_pallas_interpret(small_models, V, n):
+    """The tile-major padded layout through LBSKernelSMPL (the plain
+    version on the CPU) against the Pallas kernel in interpret mode."""
+    jm, tm = small_models(V)
+    betas, rotmats = _inputs(np.random.default_rng(V + n), n)
+    jv, jj = PallasSMPL(jm, interpret=True)(jnp.asarray(betas),
+                                            jnp.asarray(rotmats))
+    k = klbs.LBSKernelSMPL(tm)
+    n_tiles = -(-V // klbs.TILE)
+    assert k.posedirs_t.shape == (n_tiles, 207, 3, klbs.TILE)
+    assert k.weights_t.shape == (n_tiles, 24, klbs.TILE)
+    with torch.no_grad():
+        tv, tj = k(torch.as_tensor(betas), torch.as_tensor(rotmats))
+    assert tv.shape == (n, V, 3)
+    np.testing.assert_allclose(tj.numpy(), np.asarray(jj), atol=JOINTS_ATOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=VERTS_ATOL)
+
+
+@pytest.mark.parametrize("tile", klbs.TILES)
+@pytest.mark.parametrize("V", [6890, 100])
+def test_tiles_round_trip_and_zero_padding(small_models, tile, V):
+    _, tm = small_models(V)
+    pd = tm.posedirs.reshape(207, V, 3).permute(0, 2, 1)
+    t = klbs.to_tiles(pd, tile)
+    n_tiles = -(-V // tile)
+    assert t.shape == (n_tiles, 207, 3, tile) and t.is_contiguous()
+    assert torch.equal(klbs.from_tiles(t, V), pd)
+    assert torch.equal(t[:, 0, 0].reshape(-1)[:V], pd[0, 0])
+    assert not t[-1, ..., V - (n_tiles - 1) * tile:].any()
+
+
 def test_identity_pose_returns_template(models):
     jm, tm = models
     betas = np.zeros((1, 10), np.float32)
@@ -153,9 +200,9 @@ class TestSkinArgumentChecks:
         n, V = 2, tm.v_template.shape[0]
         return dict(
             pose_feature=torch.as_tensor(rng.normal(size=(n, 207)), dtype=torch.float32),
-            posedirs_k=k.posedirs_k,
+            posedirs_t=k.posedirs_t,
             v_shaped=torch.as_tensor(rng.normal(size=(n, V, 3)), dtype=torch.float32),
-            weights_k=k.weights_k,
+            weights_t=k.weights_t,
             rel=torch.as_tensor(rng.normal(size=(n, 24, 4, 4)), dtype=torch.float32))
 
     def test_accepts_valid(self, args):
@@ -175,6 +222,18 @@ class TestSkinArgumentChecks:
         args["v_shaped"] = args["v_shaped"].transpose(1, 2).contiguous(
         ).transpose(1, 2)
         with pytest.raises(ValueError, match="contiguous"):
+            klbs.skin(**args)
+
+    def test_rejects_unbuilt_tile(self, args, models):
+        k = klbs.LBSKernelSMPL(models[1], tile=16)
+        args["posedirs_t"], args["weights_t"] = k.posedirs_t, k.weights_t
+        with pytest.raises(ValueError, match="tile"):
+            klbs.skin(**args)
+
+    def test_rejects_untiled_posedirs(self, args):
+        args["posedirs_t"] = klbs.from_tiles(
+            args["posedirs_t"], args["v_shaped"].shape[1]).contiguous()
+        with pytest.raises(ValueError):
             klbs.skin(**args)
 
     def test_rejects_grad_inputs(self, args):

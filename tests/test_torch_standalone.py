@@ -1,0 +1,75 @@
+"""The port stands alone: its own constants, config and GMM asset equal the
+JAX package's, and no source file of the port names the JAX package.
+(``tests/test_torch_data.py::test_port_never_imports_jax`` imports every
+module of the port in a fresh interpreter and checks the same at run time.)"""
+
+import dataclasses
+import os
+import re
+
+import numpy as np
+import pytest
+
+from dynaboa_tpu import config as jcfg
+from dynaboa_tpu import constants as jconst
+from dynaboa_tpu_torch import config as tcfg
+from dynaboa_tpu_torch import constants as tconst
+from dynaboa_tpu_torch.losses import priors as tp
+from tests import torch_port_fixtures  # noqa: F401  (shares the cores)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "dynaboa_tpu_torch")
+CONSTANTS = sorted(n for n in vars(tconst) if n.isupper())
+
+
+def test_port_constants_are_a_subset_in_use():
+    assert len(CONSTANTS) >= 15
+    assert set(CONSTANTS) <= {n for n in vars(jconst) if n.isupper()}
+
+
+@pytest.mark.parametrize("name", CONSTANTS)
+def test_constant_equals_jax(name):
+    t, j = getattr(tconst, name), getattr(jconst, name)
+    assert type(t) is type(j)
+    if isinstance(t, np.ndarray):
+        assert t.dtype == j.dtype
+        np.testing.assert_array_equal(t, j)
+    else:
+        assert t == j
+
+
+@pytest.mark.parametrize("cls", ["AdaptConfig", "Paths"])
+def test_config_fields_and_defaults_equal_jax(cls):
+    t, j = getattr(tcfg, cls), getattr(jcfg, cls)
+    tf = [(f.name, f.type, f.default) for f in dataclasses.fields(t)]
+    jf = [(f.name, f.type, f.default) for f in dataclasses.fields(j)]
+    assert tf == jf
+    assert t.__dataclass_params__.frozen and j.__dataclass_params__.frozen
+
+
+def test_config_presets_equal_jax():
+    assert dataclasses.asdict(tcfg.AdaptConfig.internet()) == \
+        dataclasses.asdict(jcfg.AdaptConfig.internet())
+    c = tcfg.AdaptConfig().replace(lower_level_mixtrain=False,
+                                   upper_level_mixtrain=False)
+    assert not c.mixtrain and tcfg.AdaptConfig().mixtrain
+
+
+def test_gmm_asset_is_a_byte_copy():
+    path = tp.default_gmm_path()
+    assert os.path.dirname(path) == os.path.join(PORT, "assets")
+    with open(path, "rb") as f, open(os.path.join(
+            REPO, "dynaboa_tpu", "assets", "gmm_08.npz"), "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_port_sources_name_no_jax_package():
+    pattern = re.compile(r"^\s*(?:from\s+dynaboa_tpu(?:\.\S+)?\s+import|"
+                         r"import\s+dynaboa_tpu\b(?!_torch))", re.M)
+    found = []
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    found += [(f, m) for m in pattern.findall(fh.read())]
+    assert not found, found
