@@ -30,8 +30,21 @@ Phases, each of which raises (non-zero exit) on failure:
      against 8 frames, a checkpoint and a resumed run over the last 4
   7. the internet app at full width on 4 synthetic frames: predictions are
      written, no metric is computed
+  8. the stream app at full width: build the native host library (g++,
+     csrc/native), then the headless depth-2 pipeline of apps/stream.py
+     (OpenPose keypoint loss, no-grad decodes through the kernel, the native
+     renderer) over 16 synthetic 480x640 BGR frames with BODY_25 keypoints
+     inside the frame, one frame without a person, fused on-device
+     preprocessing; then 8 frames with --test_basemodel on the host crop.
+     Frames are sunk in memory (no cv2).  Frame count, width, the
+     pass-through frame, every adapted frame's overlay, the params' device
+     and the kernel's launches are checked; steady frames/s and the
+     main-loop and emit ms are printed
+  9. --save_res 1 through the benchmark CLI on 4 written 480x640 frames in
+     a 3DPW-format archive (needs cv2, which reads and writes the images):
+     every frame's prediction, overlay and mesh are written
 
-Phases 3, 5, 6 and 7 each set the kernel's launch count to 0 just before
+Phases 3, 5, 6, 7, 8 and 9 each set the kernel's launch count to 0 just before
 they drive their path and read it just after; each must launch it.  The
 line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
@@ -62,6 +75,9 @@ FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
 GEOMETRIES = ((32, 8), (32, 4), (64, 8))   # (vertices per CTA, warps per CTA)
 LOSS_RTOL = 2e-3       # the port's CPU/JAX parity tolerance for losses
 METRIC_ATOL_MM = 0.05
+STREAM_FRAMES, STREAM_BASE_FRAMES = 16, 8
+STREAM_H, STREAM_W = 480, 640
+STREAM_NOBODY = 5       # the frame index without a person
 
 
 def phase(name):
@@ -514,6 +530,168 @@ def internet_phase(torch, tmp):
     return launches
 
 
+def stream_inputs(n: int, seed: int = 22):
+    """n BGR uint8 frames (smooth 8x8 blocks) and their BODY_25 keypoints,
+    all inside the frame; frame STREAM_NOBODY has no person."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames, kps = [], []
+    for i in range(n):
+        low = rng.integers(0, 256, size=(STREAM_H // 8, STREAM_W // 8, 3))
+        frames.append(np.kron(low, np.ones((8, 8, 1))).astype(np.uint8))
+        kp = np.concatenate([
+            rng.uniform([200, 100], [440, 400], size=(25, 2)),
+            rng.uniform(0.4, 1.0, size=(25, 1))], -1).astype(np.float32)
+        kps.append(None if i == STREAM_NOBODY else kp)
+    return frames, kps
+
+
+class StreamKeypoints:
+    """A keypoint provider over a list: (1, 25, 3) or None per frame."""
+
+    def __init__(self, kps):
+        self._kps = list(kps)
+
+    def estimate(self, frame_bgr):
+        kp = self._kps.pop(0)
+        return None if kp is None else kp[None]
+
+
+def stream_phase(torch):
+    """The stream app's headless pipeline at full width on the card: fused
+    preprocessing over 16 frames, then --test_basemodel on the host crop
+    over 8.  Returns the kernel launches over the phase and the two runs'
+    summaries."""
+    import numpy as np
+
+    from dynaboa_tpu_torch import native_lib
+    from dynaboa_tpu_torch.apps import stream
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    built = native_lib.library()
+    print(f"native host library {built.path} built in {built.seconds:.1f} s",
+          flush=True)
+    launches, summaries = 0, {}
+    for label, n, flags in (
+            ("fused", STREAM_FRAMES, ["--fused_preprocess", "1"]),
+            ("test_basemodel", STREAM_BASE_FRAMES, ["--test_basemodel", "1"])):
+        args = stream.build_parser().parse_args([
+            "--device", "cuda", "--use_pallas_lbs", "1", *flags])
+        system = stream.build(args)
+        frames, kps = stream_inputs(n)
+        out = []
+        klbs.skin.launches = 0
+        summary = stream.run(system, iter(frames), StreamKeypoints(kps),
+                             out.append, fused=bool(args.fused_preprocess),
+                             test_basemodel=bool(args.test_basemodel))
+        torch.cuda.synchronize()
+        n_launch = klbs.skin.launches
+        launches += n_launch
+        adapted = n - 1
+        if summary["frames"] != n or len(out) != n or \
+                summary["adapted"] != adapted:
+            raise RuntimeError(f"stream {label}: {summary['frames']} frames, "
+                               f"{len(out)} outputs, {summary['adapted']} "
+                               f"adapted, expected {n} / {n} / {adapted}")
+        if summary["param_devices"] != ["cuda:0"]:
+            raise RuntimeError(f"stream {label}: params on "
+                               f"{summary['param_devices']}")
+        halves = 2 if args.test_basemodel else 1
+        for i, (f, o) in enumerate(zip(frames, out)):
+            if o.shape != (STREAM_H, halves * STREAM_W, 3) or \
+                    o.dtype != np.uint8:
+                raise RuntimeError(f"stream {label} frame {i}: output "
+                                   f"{o.shape} {o.dtype}")
+            for h in range(halves):
+                half = o[:, h * STREAM_W:(h + 1) * STREAM_W]
+                if i == STREAM_NOBODY and not np.array_equal(half, f):
+                    raise RuntimeError(f"stream {label}: the pass-through "
+                                       f"frame {i} differs from its input")
+                if i != STREAM_NOBODY and np.array_equal(half, f):
+                    raise RuntimeError(f"stream {label} frame {i}: no mesh "
+                                       f"drawn over the input")
+        if n_launch < adapted:
+            raise RuntimeError(f"stream {label}: skinning kernel launched "
+                               f"{n_launch} times over {adapted} adapted "
+                               f"frames")
+        summaries[label] = summary
+        print(f"stream app, {label}: {n} frames of {STREAM_W}x{STREAM_H} "
+              f"({adapted} adapted, 1 passed through), output "
+              f"{out[0].shape[1]} wide; steady {summary['steady_fps']:.3f} "
+              f"frames/s over {summary['steady_frames']} frames; main-loop "
+              f"ms/frame " + " ".join(f"{k}={v:.2f}" for k, v in
+                                      summary["main_ms"].items())
+              + "; emit ms/record " + " ".join(
+                  f"{k}={v:.2f}" for k, v in summary["emit_ms"].items())
+              + f"; kernel launches {n_launch}", flush=True)
+    return launches, summaries
+
+
+def save_res_phase(torch, tmp):
+    """The benchmark CLI with --save_res 1, at full width, on 4 frames
+    written with cv2 and a 3DPW-format archive that names them by absolute
+    path; the CLI reads the archive from data/dataset_extras under the
+    working directory, so the run is made from ``tmp``."""
+    import cv2
+    import numpy as np
+
+    from dynaboa_tpu_torch.apps import benchmark
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    n = 4
+    frames, kps = stream_inputs(n, seed=23)
+    root = os.path.join(tmp, "save_res")
+    os.makedirs(os.path.join(root, "data", "dataset_extras"))
+    names, centers, scales = [], [], []
+    for i, (f, kp) in enumerate(zip(frames, kps)):
+        names.append(os.path.join(root, f"frame_{i}.png"))
+        if not cv2.imwrite(names[-1], f):
+            raise RuntimeError(f"cv2 could not write {names[-1]}")
+        kp = kps[0] if kp is None else kp
+        lo, hi = kp[:, :2].min(0), kp[:, :2].max(0)
+        centers.append((lo + hi) / 2)
+        scales.append(1.2 * float((hi - lo).max()) / 200.0)
+    rng = np.random.default_rng(23)
+    j2d = np.concatenate([rng.uniform(200, 440, size=(n, 49, 2)),
+                          np.ones((n, 49, 1))], -1).astype(np.float32)
+    np.savez(os.path.join(root, "data", "dataset_extras", "3dpw_0_0.npz"),
+             imgname=np.array(names), center=np.array(centers, np.float32),
+             scale=np.array(scales, np.float32),
+             pose=rng.normal(scale=0.2, size=(n, 72)).astype(np.float32),
+             shape=rng.normal(scale=0.3, size=(n, 10)).astype(np.float32),
+             j2d=j2d, op_j2d=j2d, gender=np.array(["m", "f", "m", "f"]))
+    cwd = os.getcwd()
+    os.chdir(root)
+    klbs.skin.launches = 0
+    try:
+        summary = benchmark.main([
+            "--device", "cuda", "--use_pallas_lbs", "1", "--save_res", "1",
+            "--expdir", os.path.join(root, "exps"), "--expname", "run"])
+    finally:
+        os.chdir(cwd)
+    launches = klbs.skin.launches
+    check_summary(summary, n, n)
+    run = os.path.join(root, "exps", "run")
+    for i in range(n):
+        over = cv2.imread(os.path.join(run, "image", f"Pred_{i}.png"))
+        if over is None or over.shape != frames[i].shape or \
+                np.array_equal(over, frames[i]):
+            raise RuntimeError(f"overlay {i}: no mesh drawn over the frame")
+        for path in (os.path.join(run, "mesh", f"Pred_{i}.obj"),
+                     os.path.join(run, "result", f"Pred_{i}.npz")):
+            if not os.path.getsize(path):
+                raise RuntimeError(f"{path} is empty")
+    if launches < n:
+        raise RuntimeError(f"--save_res run launched the kernel {launches} "
+                           f"times over {n} frames")
+    print(f"--save_res: {n} frames of {STREAM_W}x{STREAM_H} through the "
+          f"benchmark CLI at full width, each with its prediction, overlay "
+          f"and mesh; MPJPE {summary['mpjpe']:.2f}; kernel launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -561,6 +739,10 @@ def main() -> int:
         launches_r, _ = resume_phase(torch, tmp)
         phase("7 internet app at full width")
         launches_i = internet_phase(torch, tmp)
+        phase("8 stream app at full width")
+        launches_s, _ = stream_phase(torch)
+        phase("9 --save_res overlays at full width")
+        launches_o = save_res_phase(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -579,7 +761,8 @@ def main() -> int:
         "library_call": "torch.matmul(pose_feature, posedirs) (partial: "
                         "the pose-blend product alone)",
         "launches_by_path": {"per_frame": launches, "windowed": launches_w,
-                             "resume": launches_r, "internet": launches_i},
+                             "resume": launches_r, "internet": launches_i,
+                             "stream": launches_s, "save_res": launches_o},
         "geometries": geometries,
     }]
     print(info)

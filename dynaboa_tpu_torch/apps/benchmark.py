@@ -181,19 +181,24 @@ def main(argv=None):
         print(f"---> synthetic stand-ins active: "
               f"{[k for k, v in system.synthetic.items() if v]}")
     return run_stream(system, stream, args, exppath,
-                      save_predictions=bool(args.save_res))
+                      save_predictions=bool(args.save_res),
+                      img_root=paths.pw3d_root)
 
 
-def run_stream(system, stream, args, exppath: str,
-               save_predictions: bool) -> dict:
+def run_stream(system, stream, args, exppath: str, save_predictions: bool,
+               img_root: str) -> dict:
     """The runner over ``stream`` with the CLI's runtime flags; returns the
-    run summary."""
+    run summary.  ``--save_res 1`` also writes the overlays of the frames
+    whose image exists under ``img_root``."""
     from dynaboa_tpu_torch.engine.runner import StreamRunner
 
     runner = StreamRunner(system.engine, exppath,
                           save_predictions=save_predictions,
                           checkpoint_every=args.checkpoint_every,
-                          profile_dir=args.profile_dir)
+                          profile_dir=args.profile_dir,
+                          save_overlays=bool(args.save_res),
+                          img_root=img_root,
+                          faces=system.smpls.neutral.faces)
     W = args.window_size
     state = system.engine.init_state(system.params, batch_size=W)
     try:

@@ -6,8 +6,10 @@ The benchmark CLI's flags, with the internet preset (``--dataset
 internet``, ``--expname internet``, ``--shape_prior_weight 2e-4``).  Metrics
 are not computed; every frame's prediction is written to
 ``<expdir>/<expname>/result/Pred_<i>.npz`` (verts, cam translation,
-crop-space cam, rotmat, betas).  The stream is ``InternetStream`` over
-``Paths.internet_root``, or a synthetic one under ``--synthetic N``.
+crop-space cam, rotmat, betas), and with ``--save_res 1`` its overlay to
+``image/Pred_<i>.png`` and its mesh to ``mesh/Pred_<i>.obj``.  The stream
+is ``InternetStream`` over ``Paths.internet_root``, or a synthetic one
+under ``--synthetic N``.
 
 Usage:
   python -m dynaboa_tpu_torch.apps.internet --device cuda --expdir exps
@@ -49,7 +51,9 @@ def main(argv=None):
     # unlabeled stream: metrics are undefined, the predictions are the output
     system = build_system(cfg, paths, args.device, compute_metrics=False,
                           **tiny_kwargs(args))
-    return run_stream(system, stream, args, exppath, save_predictions=True)
+    # InternetStream's imgnames are relative to its images/ directory
+    return run_stream(system, stream, args, exppath, save_predictions=True,
+                      img_root=osp.join(paths.internet_root, "images"))
 
 
 if __name__ == "__main__":

@@ -47,8 +47,8 @@ from dynaboa_tpu_torch.config import AdaptConfig
 from dynaboa_tpu_torch.engine.retrieval import RetrievalStore, retrieve
 from dynaboa_tpu_torch.kernels.lbs import LBSKernelSMPL
 from dynaboa_tpu_torch.losses.adaptation import (
-    feature_cosine_similarities, frame_loss, labeled_loss, motion_loss,
-    teacher_loss)
+    feature_cosine_similarities, frame_loss, keypoint_2d_loss_openpose,
+    labeled_loss, motion_loss, teacher_loss)
 from dynaboa_tpu_torch.losses.priors import GMMPrior
 from dynaboa_tpu_torch.metrics.eval import (GenderedSMPL, evaluate_pred,
                                             gt_targets)
@@ -93,9 +93,6 @@ class BilevelEngine:
         if cfg.fast_extra_updates or cfg.probe_res_factor != 1:
             raise NotImplementedError(
                 "fast_extra_updates / probe_res_factor are not ported")
-        if cfg.keypoint_source != "gt":
-            raise NotImplementedError(
-                "keypoint_source='openpose' (the webcam path) is not ported")
         if cfg.mixtrain and store is None:
             raise ValueError("mixtrain requires a RetrievalStore")
         self.cfg = cfg
@@ -187,13 +184,17 @@ class BilevelEngine:
             loss, parts = frame_loss(
                 self.prior, s2d[fr], rotmat[fr], shape[fr], frame.j2d,
                 cfg.s2dloss_weight, cfg.shape_prior_weight,
-                cfg.pose_prior_weight, frame.mask)
+                cfg.pose_prior_weight, frame.mask,
+                kp_loss_fn=(keypoint_2d_loss_openpose
+                            if cfg.keypoint_source == "openpose" else None))
             aux.update(parts)
             aux["unlabelloss"] = loss
         if use_motion:
-            # over the 24 GT joints; always computed, masked until
-            # step > interval
-            ksl = slice(25, None)
+            # over the 25 OpenPose joints on the stream app's path
+            # (reference dynaboa_webcam.py:277), else the 24 GT joints;
+            # always computed, masked until step > interval
+            ksl = (slice(None, 25) if cfg.keypoint_source == "openpose"
+                   else slice(25, None))
             hist_j2d = state.hist_j2d[slot]
             ml = motion_loss(s2d[fr][:, ksl], frame.j2d[:, ksl],
                              s2d[hi][:, ksl], hist_j2d[:, ksl], frame.mask)

@@ -14,6 +14,9 @@ Modes, as in the JAX runner:
 - ``auto_reset``: a non-finite loss or metric resets params, teacher and
   optimizer to the initial weights (history, step and rng are kept).
 - raw-frame items (fused preprocessing) are cropped on the engine's device.
+- ``save_overlays`` (``--save_res``): the predicted mesh over the original
+  frame in ``image/Pred_<i>.png`` and the mesh in ``mesh/Pred_<i>.obj``, for
+  items whose ``imgname`` names an image that exists.
 
 Recording is synchronous: each frame's (or chunk's) outputs reach the host
 right after its step, and its time runs from the upload of its first frame
@@ -38,6 +41,12 @@ from dynaboa_tpu_torch.ops.image import fused_crop_resize_normalize
 
 _PER_FRAME_KEYS = ("mpjpe", "pampjpe", "pve", "verts", "rotmat", "beta",
                    "cam")
+_META_KEYS = ("imgname", "bbox")
+
+
+def item_meta(item: dict) -> dict:
+    """The part of a stream item that the overlay needs after the step."""
+    return {k: item[k] for k in _META_KEYS if k in item}
 
 
 def frame_from_item(item: dict, device, keypoint_source: str = "gt") -> Frame:
@@ -104,6 +113,18 @@ def _to_host(x):
     return x
 
 
+def reset_weights(state: AdaptState, template: dict) -> None:
+    """The divergence remedy: copy the initial weights into the live params
+    and teacher and start a new Adam over the same tensors; the state's
+    dicts, history ring, step and rng are kept."""
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(template[k])
+            state.teacher_params[k].copy_(template[k])
+    opt = state.optimizer
+    state.optimizer = type(opt)(list(state.params.values()), **opt.defaults)
+
+
 def _diverged(out: dict) -> bool:
     checks = [out.get("mpjpe", 0.0), out.get("upper", {}).get("loss", 0.0),
               out.get("lower", {}).get("loss", 0.0)]
@@ -113,21 +134,33 @@ def _diverged(out: dict) -> bool:
 class StreamRunner:
     def __init__(self, engine: BilevelEngine, exppath: str,
                  save_predictions: bool = False, checkpoint_every: int = 0,
-                 log_every: int = 200, profile_dir: str | None = None):
+                 log_every: int = 200, profile_dir: str | None = None,
+                 save_overlays: bool = False, img_root: str | None = None,
+                 faces=None):
         """``profile_dir``: write a ``torch.profiler`` chrome trace of the
-        run there (``trace.json``)."""
+        run there (``trace.json``).  ``save_overlays`` renders the predicted
+        mesh over the original frame with the native rasterizer and writes
+        ``image/Pred_<i>.png`` + ``mesh/Pred_<i>.obj`` (the reference's
+        --save_res path, base_adaptor.py:429-443); it needs items that carry
+        ``imgname`` (relative to ``img_root``) and ``bbox``, and the SMPL
+        ``faces``."""
         self.engine = engine
         self.exppath = exppath
-        os.makedirs(osp.join(exppath, "result"), exist_ok=True)
+        for d in ("result", "image", "mesh"):
+            os.makedirs(osp.join(exppath, d), exist_ok=True)
         self.writer = ScalarWriter(exppath)
         self.save_predictions = save_predictions
         self.checkpoint_every = checkpoint_every
         self.log_every = log_every
         self.profile_dir = profile_dir
+        self.save_overlays = save_overlays
+        self.img_root = img_root or ""
+        self.faces = faces
         self._ckpt = AsyncCheckpointer()
         self.reset_records()
 
     def reset_records(self):
+        self._renderers: dict[tuple[int, int], object] = {}
         self.mpjpe_all: list[float] = []
         self.pampjpe_all: list[float] = []
         self.pve_all: list[float] = []
@@ -156,19 +189,6 @@ class StreamRunner:
         return self.engine.init_state(params, batch_size=batch_size,
                                       img_res=img_res)
 
-    @staticmethod
-    def _reset_weights(state: AdaptState, template: dict) -> None:
-        """Copy the initial weights into the live params and teacher and
-        start a new Adam over the same tensors; the state's dicts, history,
-        step and rng are kept."""
-        with torch.no_grad():
-            for k, p in state.params.items():
-                p.copy_(template[k])
-                state.teacher_params[k].copy_(template[k])
-        opt = state.optimizer
-        state.optimizer = type(opt)(list(state.params.values()),
-                                    **opt.defaults)
-
     def run(self, stream, init_state: AdaptState, keypoint_source: str = "gt",
             resume_from: str | None = None, max_frames: int | None = None,
             chunk_size: int = 1, window_size: int = 1,
@@ -194,14 +214,15 @@ class StreamRunner:
         n_total = len(stream)
         device = self.engine.device
         prof = self._start_profile(device)
-        pending: list[tuple[int, Frame, int]] = []   # (first index, frame, n)
+        # (first index, frame, each real row's item_meta)
+        pending: list[tuple[int, Frame, list[dict]]] = []
         chunk_t0 = None
 
-        def add(i0: int, build, n_real: int):
+        def add(i0: int, build, metas: list[dict]):
             nonlocal chunk_t0
             if chunk_t0 is None:
                 chunk_t0 = time.perf_counter()
-            pending.append((i0, build(), n_real))
+            pending.append((i0, build(), metas))
 
         def flush():
             nonlocal state, chunk_t0
@@ -210,18 +231,18 @@ class StreamRunner:
             state, outs = self.engine.run_chunk(
                 state, [f for _, f, _ in pending])
             outs = _to_host(outs)
-            n_frames = sum(n for _, _, n in pending)
+            n_frames = sum(len(metas) for _, _, metas in pending)
             dt = (time.perf_counter() - chunk_t0) / n_frames
             chunk_t0 = None
             if not self._first_flush_frames:
                 self._first_flush_frames = n_frames
             diverged_at = None
-            for (i0, _, n_real), out in zip(pending, outs):
+            for (i0, _, metas), out in zip(pending, outs):
                 rows = ([out] if window_size == 1
-                        else split_window_out(out, n_real))
+                        else split_window_out(out, len(metas)))
                 for j, o in enumerate(rows):
                     self.step_times.append(dt)
-                    self._record(i0 + j, o)
+                    self._record(i0 + j, o, metas[j])
                 if reset_template is not None and diverged_at is None \
                         and _diverged(out):
                     diverged_at = i0
@@ -231,7 +252,7 @@ class StreamRunner:
                 print(f"---> non-finite adaptation detected at frame "
                       f"{diverged_at}; resetting model/teacher/optimizer "
                       f"(reset #{self.reset_count})")
-                self._reset_weights(state, reset_template)
+                reset_weights(state, reset_template)
 
         try:
             win_items: list[tuple[int, dict]] = []
@@ -242,13 +263,15 @@ class StreamRunner:
                     break
                 if window_size == 1:
                     add(i, lambda: frame_from_item(item, device,
-                                                   keypoint_source), 1)
+                                                   keypoint_source),
+                        [item_meta(item)])
                 else:
                     win_items.append((i, item))
                     if len(win_items) == window_size:
                         items = [it for _, it in win_items]
                         add(win_items[0][0], lambda: frame_from_window(
-                            items, device, keypoint_source), window_size)
+                            items, device, keypoint_source),
+                            [item_meta(it) for it in items])
                         win_items = []
                 if len(pending) >= chunk_size:
                     flush()
@@ -277,7 +300,8 @@ class StreamRunner:
                     mask[:T] = 1.0
                     return fr._replace(mask=mask)
 
-                add(win_items[0][0], padded, T)
+                add(win_items[0][0], padded,
+                    [item_meta(it) for it in items])
                 print(f"---> final window padded: {T} real + "
                       f"{window_size - T} masked pad frames")
             flush()
@@ -361,7 +385,7 @@ class StreamRunner:
 
     # -- records ---------------------------------------------------------------
 
-    def _record(self, i: int, out: dict):
+    def _record(self, i: int, out: dict, meta: dict):
         scalars = {}
         self.frames_seen += 1
         if "mpjpe" in out:
@@ -425,6 +449,44 @@ class StreamRunner:
             np.savez(osp.join(self.exppath, "result", f"Pred_{i}.npz"),
                      verts=out["verts"], cam=cam_t, cam_crop=cam,
                      rotmat=out["rotmat"], beta=out["beta"])
+
+        if self.save_overlays and meta.get("imgname"):
+            self._render_overlay(i, out, meta)
+
+    def _render_overlay(self, i: int, out: dict, meta: dict):
+        """--save_res: the mesh over the original frame + its OBJ (reference
+        base_adaptor.py:429-443, through the native rasterizer).  Frames
+        whose image does not exist are skipped."""
+        path = meta["imgname"]
+        if self.img_root and not osp.isabs(path):
+            path = osp.join(self.img_root, path)
+        if not osp.exists(path) or self.faces is None:
+            return
+        import cv2
+
+        from dynaboa_tpu_torch.viz.renderer import (
+            Renderer, convert_crop_cam_to_orig_img, save_obj)
+
+        img = cv2.imread(path)
+        if img is None:
+            return
+        verts = np.asarray(out["verts"])[0]
+        cam3 = np.asarray(out["cam"])[0]
+        h, w = img.shape[:2]
+        # one cached renderer per image size (the reference rebuilds its EGL
+        # renderer every frame, dynaboa_webcam.py:77)
+        rend = self._renderers.get((w, h))
+        if rend is None:
+            rend = Renderer(resolution=(w, h), faces=self.faces)
+            self._renderers[(w, h)] = rend
+        orig_cam = convert_crop_cam_to_orig_img(
+            np.asarray(cam3, np.float32).reshape(1, 3),
+            np.asarray(meta["bbox"], np.float32).reshape(1, 3), w, h)[0]
+        over = rend.render(img, verts, orig_cam,
+                           color=(205 / 255, 129 / 255, 98 / 255))
+        cv2.imwrite(osp.join(self.exppath, "image", f"Pred_{i}.png"), over)
+        save_obj(osp.join(self.exppath, "mesh", f"Pred_{i}.obj"), verts,
+                 self.faces)
 
     @staticmethod
     def _padded_trajectories(traj: dict[int, np.ndarray], prefix: str):

@@ -6,6 +6,8 @@ module of the port in a fresh interpreter and checks the same at run time.)"""
 import dataclasses
 import os
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -73,3 +75,41 @@ def test_port_sources_name_no_jax_package():
                 with open(os.path.join(root, f)) as fh:
                     found += [(f, m) for m in pattern.findall(fh.read())]
     assert not found, found
+
+
+@pytest.mark.parametrize("name", ["rasterizer.cpp", "imageops.cpp",
+                                  "capture.cpp"])
+def test_native_sources_are_byte_copies(name):
+    with open(os.path.join(PORT, "csrc", "native", name), "rb") as f, \
+            open(os.path.join(REPO, "native", name), "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_keypoint_tables_equal_jax():
+    from dynaboa_tpu.ops import keypoints as jkp
+    from dynaboa_tpu_torch.ops import keypoints as tkp
+
+    assert tkp.JOINT_FORMATS == jkp.JOINT_FORMATS
+    assert tkp.SKELETONS == jkp.SKELETONS
+    assert tkp.POSETRACK_ORIGINAL_KP_NAMES == jkp.POSETRACK_ORIGINAL_KP_NAMES
+
+
+def test_importing_builds_and_loads_nothing():
+    """In a fresh interpreter where compiling or loading a shared library
+    raises (once torch and numpy, which load theirs, are in), the native
+    library's binding, the renderer, the capture classes and the stream app
+    import, and nothing was built."""
+    code = (
+        "import ctypes, subprocess, numpy, torch\n"
+        "def boom(*a, **k): raise AssertionError('built or loaded at import')\n"
+        "subprocess.run = subprocess.Popen = ctypes.CDLL = boom\n"
+        "import dynaboa_tpu_torch.native_lib as n, dynaboa_tpu_torch.viz\n"
+        "import dynaboa_tpu_torch.viz.capture, dynaboa_tpu_torch.apps.stream\n"
+        "import dynaboa_tpu_torch.kernels.lbs as k\n"
+        "assert n._built == {} and k._built == {}\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

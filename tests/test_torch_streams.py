@@ -1,7 +1,10 @@
 """The port's real-data loaders against the JAX package's on tiny on-disk
 fixtures written here with cv2: 3DPW archives, an internet-video archive and
 an H36M exemplar bank with its retrieval clusters.  Items, banks and stores
-must be equal key by key."""
+must be equal key by key.  The 3DPW fixture also carries a --save_res run
+that writes every frame's overlay."""
+
+import os
 
 import cv2
 import joblib
@@ -165,3 +168,31 @@ def test_reference_store_equals_the_jax_store(tmp_path):
     for a, b in ((ts.centers, js.centers), (ts.members, js.members),
                  (ts.member_mask, js.member_mask)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("window", [1, 2])
+def test_save_res_writes_every_frames_overlay(pw3d, tmp_path, window):
+    """--save_res 1 through the benchmark CLI's runner on the 3DPW archives:
+    each frame's prediction, overlay and mesh, per window row too (the last
+    window of 2 is a padded single frame)."""
+    from dynaboa_tpu_torch.apps import benchmark
+    from dynaboa_tpu_torch.apps.common import build_system
+
+    args = benchmark.build_parser().parse_args([
+        "--device", "cpu", "--tiny", "1", "--save_res", "1",
+        "--optim_steps", "1", "--window_size", str(window)])
+    system = build_system(benchmark.cfg_from_args(args), None, "cpu",
+                          **benchmark.tiny_kwargs(args))
+    stream = tstreams.PW3DStream(str(pw3d), str(pw3d / "imgs"), prefetch=0)
+    run = tmp_path / "run"
+    summary = benchmark.run_stream(system, stream, args, str(run),
+                                   save_predictions=True,
+                                   img_root=str(pw3d / "imgs"))
+    assert summary["frames"] == 5
+    for d, ext in (("result", "npz"), ("image", "png"), ("mesh", "obj")):
+        assert sorted(os.listdir(run / d)) == [f"Pred_{i}.{ext}"
+                                               for i in range(5)], d
+    for i in range(5):
+        over = cv2.imread(str(run / "image" / f"Pred_{i}.png"))
+        assert over.shape == (H, W, 3)
+        assert (run / "mesh" / f"Pred_{i}.obj").read_text().startswith("v ")
