@@ -43,8 +43,30 @@ Phases, each of which raises (non-zero exit) on failure:
   9. --save_res 1 through the benchmark CLI on 4 written 480x640 frames in
      a 3DPW-format archive (needs cv2, which reads and writes the images):
      every frame's prediction, overlay and mesh are written
+ 10. bf16 at full width: the benchmark CLI with --compute_dtype bfloat16 on
+     8 frames (params on the card and float32, finite metrics, launches),
+     its steady frames/s beside phase 3's fp32 run; then a trajectory
+     qualification in the spirit of the JAX bench, with deterministic
+     algorithms (a second fp32 run shows whether one repeats): 32
+     frames in bf16 and in fp32 from identical weights and 3 fp32 chaos
+     controls (weights scaled by 1 + 1.2e-7, 1 + 2.4e-7, 1 - 1.2e-7): the
+     steady-MPJPE relative gap against the controls', the weight drift
+     against 4 * n_updates * lr, which must hold, and the L2 distance of
+     the bf16 run's weights from the fp32 run's over the fp32 run's own
+     distance from the start, which must lie in (0, 1]; whether bf16
+     qualifies by the JAX rule is printed
+ 11. parallel streams at full width: --parallel_streams 2 through the
+     benchmark CLI on 12 frames (res.txt, per-stream frames, launches); then
+     run_parallel in-process at S = 1, 2, 4, 8 streams of 4 frames (round
+     robin), aggregate frames/s; then one share_weights step of 2 streams
+     (params equal across streams, teachers private)
+ 12. the worst-case experiment flags at full width, threshold -1 and
+     optim_steps 7: 3 frames each with fast_extra_updates, with
+     probe_res_factor 2 and with neither, the arms in turns frame by frame;
+     every frame takes 7 extra updates, outputs are finite, ms per frame
+     after the first
 
-Phases 3, 5, 6, 7, 8 and 9 each set the kernel's launch count to 0 just before
+Phases 3, 5-12 each set the kernel's launch count to 0 just before
 they drive their path and read it just after; each must launch it.  The
 line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
@@ -78,6 +100,12 @@ METRIC_ATOL_MM = 0.05
 STREAM_FRAMES, STREAM_BASE_FRAMES = 16, 8
 STREAM_H, STREAM_W = 480, 640
 STREAM_NOBODY = 5       # the frame index without a person
+QUAL_FRAMES = 32
+CHAOS_EPS = (1.2e-7, 2.4e-7, -1.2e-7)
+BF16_WEIGHT_GAP = 1.0   # |bf16 - fp32| weights over |fp32 - start|, at most
+PAR_FRAMES = 12
+PAR_PER_STREAM = 4
+EXP_FRAMES = 3
 
 
 def phase(name):
@@ -692,6 +720,253 @@ def save_res_phase(torch, tmp):
     return launches
 
 
+def bf16_phase(torch, dev, tmp, fp32_summary):
+    """The benchmark CLI in bf16 at full width, then the trajectory
+    qualification against fp32."""
+    import numpy as np
+
+    from dynaboa_tpu_torch.apps import benchmark
+    from dynaboa_tpu_torch.apps.common import build_system
+    from dynaboa_tpu_torch.config import AdaptConfig
+    from dynaboa_tpu_torch.data.streams import SyntheticStream
+    from dynaboa_tpu_torch.engine.runner import frame_from_item
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    klbs.skin.launches = 0
+    summary = benchmark.main([
+        "--device", dev.type, "--synthetic", str(N_FRAMES),
+        "--compute_dtype", "bfloat16", "--use_pallas_lbs", "1",
+        "--expdir", os.path.join(tmp, "exps"), "--expname", "bf16"])
+    torch.cuda.synchronize()
+    launches = klbs.skin.launches
+    check_summary(summary, N_FRAMES, N_FRAMES)
+    if summary["param_dtypes"] != ["float32"]:
+        raise RuntimeError(f"bf16 run params are {summary['param_dtypes']}")
+    if launches < N_FRAMES:
+        raise RuntimeError(f"bf16 run launched the kernel {launches} times "
+                           f"over {N_FRAMES} frames")
+    print(f"bf16 CLI: {N_FRAMES} frames, steady {summary['fps']:.3f} frames/s"
+          f" against fp32 {fp32_summary['fps']:.3f} (phase 3, this call); "
+          f"per-frame extra steps {summary['optim_steps']}; MPJPE "
+          f"{summary['mpjpe']:.2f}; params {summary['param_dtypes']} on "
+          f"{summary['param_devices']}; kernel launches {launches}",
+          flush=True)
+
+    cfg = AdaptConfig(record_lowerlevel=False, use_pallas_lbs=True)
+    sys16 = build_system(cfg.replace(compute_dtype="bfloat16"), None, dev)
+    sys32 = build_system(cfg, None, dev)
+    for k, v in sys32.params.items():
+        if not torch.equal(v, sys16.params[k]):
+            raise RuntimeError(f"bf16 and fp32 weights differ at {k}")
+    frames = [frame_from_item(it, dev)
+              for it in SyntheticStream(QUAL_FRAMES, seed=22)]
+
+    def trajectory(system, params):
+        eng = system.engine
+        st = eng.init_state(params)
+        mpjpe, updates = [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fr in frames:
+            st, out = eng.step(st, fr)
+            mpjpe.append(float(out["mpjpe"].mean()))
+            updates += int(out["optim_steps"]) + 1
+        fps = len(frames) / (time.perf_counter() - t0)
+        return np.asarray(mpjpe), updates, st, fps
+
+    # without deterministic algorithms two fp32 runs of the same frames
+    # differ, and over a short horizon that difference is the size of the
+    # gap under test
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        m16, upd16, st16, fps16 = trajectory(sys16, sys16.params)
+        m32, upd32, st32, fps32 = trajectory(sys32, sys32.params)
+        m32_again = trajectory(sys32, sys32.params)[0]
+        controls_run = [trajectory(sys32, {k: v * (1.0 + eps)
+                                           for k, v in sys32.params.items()})
+                        for eps in CHAOS_EPS]
+        controls_m = [r[0] for r in controls_run]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    repeat_mm = float(np.abs(m32 - m32_again).max())
+    tail = QUAL_FRAMES // 2
+    steady32 = max(abs(m32[tail:].mean()), 1e-9)
+    controls = []
+    for mc in controls_m:
+        if not np.isfinite(mc).all():
+            raise RuntimeError("non-finite MPJPE in a chaos control")
+        controls.append(float(abs(mc[tail:].mean() - m32[tail:].mean())
+                              / steady32))
+    if not (np.isfinite(m16).all() and np.isfinite(m32).all()):
+        raise RuntimeError("non-finite MPJPE in the bf16 trajectory")
+    rel = float(abs(m16[tail:].mean() - m32[tail:].mean()) / steady32)
+    n_updates = 0.5 * (upd16 + upd32)
+    bound = 4.0 * n_updates * cfg.lr
+    drift = max(float((st16.params[k] - st32.params[k]).detach().abs().max())
+                for k in st32.params)
+
+    def tree_dist(a, b):
+        return math.sqrt(sum(float(((a[k] - b[k]).detach().double() ** 2)
+                                   .sum()) for k in a))
+
+    # the bf16 run's weights against the fp32 run's, as a share of how far
+    # the fp32 run moved them: an update of unrelated direction and the same
+    # size reads about 1.4, an fp32 engine 0
+    moved = tree_dist(st32.params, sys32.params)
+    gap = tree_dist(st16.params, st32.params) / moved
+    control_gaps = [tree_dist(r[2].params, st32.params) / moved
+                    for r in controls_run]
+    print(f"bf16 weights: |bf16 - fp32| = {gap:.4f} of |fp32 - start| "
+          f"({moved:.4e}); chaos controls "
+          f"{[round(g, 4) for g in control_gaps]}", flush=True)
+    if not math.isfinite(drift) or drift > bound:
+        raise RuntimeError(f"bf16 weight drift {drift:.3e} beyond the Adam "
+                           f"bound 4*n_updates*lr = {bound:.3e}")
+    if not 0.0 < gap <= BF16_WEIGHT_GAP:
+        raise RuntimeError(f"bf16 weights {gap:.4f} of the fp32 update away "
+                           f"from fp32's, outside (0, {BF16_WEIGHT_GAP}]")
+    qualifies = rel <= max(0.02, 2.0 * max(controls))
+    print(f"bf16 trajectory, {QUAL_FRAMES} frames from identical weights: "
+          f"steady MPJPE (last {QUAL_FRAMES - tail}) bf16 "
+          f"{m16[tail:].mean():.4f} fp32 {m32[tail:].mean():.4f}, rel gap "
+          f"{rel:.5f}; chaos controls {[round(c, 5) for c in controls]}; "
+          f"weight drift {drift:.3e} = {drift / bound:.3f} of the bound "
+          f"{bound:.3e} (n_updates {n_updates:g}); qualifies by the JAX rule "
+          f"(rel <= max(0.02, 2 * worst control)): {qualifies}; a second fp32 "
+          f"run differs from the first by at most {repeat_mm} mm per frame; "
+          f"frames/s in this loop "
+          f"(deterministic algorithms) bf16 {fps16:.3f} fp32 {fps32:.3f}",
+          flush=True)
+    return launches, dict(fps16=summary["fps"], fps32=fp32_summary["fps"],
+                          traj_fps16=fps16, traj_fps32=fps32, rel=rel,
+                          controls=controls, drift=drift, bound=bound,
+                          weight_gap=gap, control_weight_gaps=control_gaps,
+                          qualifies=qualifies, fp32_repeat_mm=repeat_mm)
+
+
+def parallel_phase(torch, dev, tmp):
+    """--parallel_streams through the CLI, the in-process stream sweep and
+    one share_weights step."""
+    from dynaboa_tpu_torch.apps import benchmark
+    from dynaboa_tpu_torch.apps.common import build_system
+    from dynaboa_tpu_torch.config import AdaptConfig
+    from dynaboa_tpu_torch.data.streams import SyntheticStream
+    from dynaboa_tpu_torch.engine.runner import frame_from_item
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+    from dynaboa_tpu_torch.parallel import streams as P
+
+    run = os.path.join(tmp, "exps", "parallel")
+    klbs.skin.launches = 0
+    summary = benchmark.main([
+        "--device", dev.type, "--synthetic", str(PAR_FRAMES),
+        "--parallel_streams", "2", "--use_pallas_lbs", "1",
+        "--expdir", os.path.join(tmp, "exps"), "--expname", "parallel"])
+    torch.cuda.synchronize()
+    launches = klbs.skin.launches
+    with open(os.path.join(run, "res.txt")) as f:
+        text = f.read().strip()
+    values = [float(part.split(":")[1]) for part in text.split(", ")]
+    if len(values) != 3 or not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"res.txt reads {text!r}")
+    frames = [p["frames"] for p in summary["per_stream"]]
+    if sum(frames) != PAR_FRAMES or len(frames) != 2:
+        raise RuntimeError(f"per-stream frames {frames}, expected 2 streams "
+                           f"summing to {PAR_FRAMES}")
+    if launches < PAR_FRAMES:
+        raise RuntimeError(f"parallel run launched the kernel {launches} "
+                           f"times over {PAR_FRAMES} frames")
+    print(f"--parallel_streams 2: per-stream frames {frames}, res.txt "
+          f"{text!r}, {summary['fps']:.3f} aggregate frames/s; kernel "
+          f"launches {launches}", flush=True)
+
+    system = build_system(AdaptConfig(use_pallas_lbs=True), None, dev)
+    rates = []
+    for S in (1, 2, 4, 8):
+        groups = P.partition_items(
+            SyntheticStream(S * PAR_PER_STREAM, seed=22), S)
+        out = P.run_parallel(system.engine, system.params, groups,
+                             devices=[dev], log=lambda *a: None)
+        torch.cuda.synchronize()
+        for k in ("mpjpe", "pampjpe", "pve"):
+            if not math.isfinite(out[k]):
+                raise RuntimeError(f"S={S}: {k} = {out[k]}")
+        rates.append(dict(streams=S, fps=out["fps"]))
+        print(f"run_parallel S={S} x {PAR_PER_STREAM} frames, round robin: "
+              f"{out['fps']:.3f} aggregate frames/s (first round excluded); "
+              f"MPJPE {out['mpjpe']:.2f}", flush=True)
+
+    par = P.ParallelStreams(system.engine, [dev], share_weights=True)
+    states = par.init_states(system.params, 2)
+    states, outs = par.step(states, [frame_from_item(it, dev)
+                                     for it in SyntheticStream(2, seed=23)])
+    for k, v in states[0].params.items():
+        if not torch.equal(v, states[1].params[k]):
+            raise RuntimeError(f"share_weights: stream params differ at {k}")
+    if torch.equal(states[0].teacher_params["fc1.weight"],
+                   states[1].teacher_params["fc1.weight"]):
+        raise RuntimeError("share_weights: the teachers are not private")
+    print("share_weights step of 2 streams: params equal across the streams, "
+          "teachers private", flush=True)
+    return launches, rates
+
+
+def experiments_phase(torch, dev):
+    """fast_extra_updates, probe_res_factor 2 and neither, every update
+    taken, at full width: ms per frame after the first."""
+    from dynaboa_tpu_torch.apps.common import build_system
+    from dynaboa_tpu_torch.config import AdaptConfig
+    from dynaboa_tpu_torch.data.streams import SyntheticStream
+    from dynaboa_tpu_torch.engine.runner import frame_from_item
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    base = AdaptConfig(cos_sim_threshold=-1.0, optim_steps=7,
+                       use_pallas_lbs=True)
+    items = list(SyntheticStream(EXP_FRAMES, seed=24))
+    arms = {}
+    for label, flags in (("default", {}),
+                         ("fast_extra_updates", dict(fast_extra_updates=True)),
+                         ("probe_res_factor=2", dict(probe_res_factor=2))):
+        system = build_system(base.replace(**flags), None, dev)
+        arms[label] = dict(engine=system.engine,
+                           state=system.engine.init_state(system.params),
+                           frames=[frame_from_item(it, dev) for it in items],
+                           times=[], launches=0)
+    klbs.skin.launches = 0
+    # frame by frame, the arms in turns (forward, then backward), so that no
+    # arm always runs first
+    for i in range(EXP_FRAMES):
+        for label in (list(arms) if i % 2 == 0 else list(arms)[::-1]):
+            arm = arms[label]
+            before = klbs.skin.launches
+            t0 = time.perf_counter()
+            arm["state"], out = arm["engine"].step(arm["state"],
+                                                   arm["frames"][i])
+            torch.cuda.synchronize()
+            arm["times"].append(time.perf_counter() - t0)
+            arm["launches"] += klbs.skin.launches - before
+            if int(out["optim_steps"]) != base.optim_steps:
+                raise RuntimeError(f"{label}: {int(out['optim_steps'])} extra "
+                                   f"updates, expected {base.optim_steps}")
+            for k in ("mpjpe", "pampjpe", "pve", "verts", "per_step_loss"):
+                if not torch.isfinite(out[k]).all():
+                    raise RuntimeError(f"{label}: non-finite {k}")
+    launches = klbs.skin.launches
+    ms = {}
+    for label, arm in arms.items():
+        if arm["launches"] == 0:
+            raise RuntimeError(f"{label}: the kernel never launched")
+        ms[label] = 1e3 * statistics.mean(arm["times"][1:])
+        print(f"worst case, {label}: {ms[label]:.2f} ms/frame over "
+              f"{EXP_FRAMES - 1} frames after the first "
+              f"({arm['times'][0]:.2f} s; arms in turns), "
+              f"{base.optim_steps} extra updates each; kernel launches "
+              f"{arm['launches']}", flush=True)
+    return launches, ms
+
+
 def main() -> int:
     import torch
 
@@ -730,7 +1005,7 @@ def main() -> int:
     phase(f"3 main path, {N_FRAMES} frames at full width")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches, _ = main_path_phase(torch, tmp)
+        launches, main_summary = main_path_phase(torch, tmp)
         phase("4 tiny CLI run, cuda vs cpu")
         cross_device_phase(tmp)
         phase(f"5 windowed path, W={WINDOW}, full width")
@@ -743,6 +1018,12 @@ def main() -> int:
         launches_s, _ = stream_phase(torch)
         phase("9 --save_res overlays at full width")
         launches_o = save_res_phase(torch, tmp)
+        phase("10 bf16 at full width")
+        launches_b, _ = bf16_phase(torch, dev, tmp, main_summary)
+        phase("11 parallel streams at full width")
+        launches_p, _ = parallel_phase(torch, dev, tmp)
+        phase("12 worst-case experiment flags at full width")
+        launches_e, _ = experiments_phase(torch, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -762,7 +1043,9 @@ def main() -> int:
                         "the pose-blend product alone)",
         "launches_by_path": {"per_frame": launches, "windowed": launches_w,
                              "resume": launches_r, "internet": launches_i,
-                             "stream": launches_s, "save_res": launches_o},
+                             "stream": launches_s, "save_res": launches_o,
+                             "bf16": launches_b, "parallel": launches_p,
+                             "experiments": launches_e},
         "geometries": geometries,
     }]
     print(info)

@@ -7,15 +7,18 @@ The argparse surface of ``dynaboa_tpu/apps/benchmark.py`` plus ``--device``
 runs the pipeline on a deterministic synthetic stream; without it the 3DPW
 archives under ``data/dataset_extras`` are read.  ``--window_size``,
 ``--chunk_size``, ``--fused_preprocess``, ``--checkpoint_every``,
-``--resume``, ``--auto_reset`` and ``--profile_dir`` work as in the JAX CLI.
-``--parallel_streams`` and ``--compute_dtype bfloat16`` are not ported and
-exit with a message.  ``--use_pallas_lbs`` keeps its name: it selects the
-Hopper skinning kernel for the no-grad SMPL decodes.
+``--resume``, ``--auto_reset``, ``--profile_dir``, ``--compute_dtype
+bfloat16`` and ``--parallel_streams N`` work as in the JAX CLI; the parallel
+path runs on ``--device`` (every CUDA card for ``cuda``) and writes
+``res.txt`` only.  ``--use_pallas_lbs`` keeps its name: it selects the Hopper
+skinning kernel for the no-grad SMPL decodes.
 
 Usage:
   python -m dynaboa_tpu_torch.apps.benchmark --device cuda --synthetic 8
   python -m dynaboa_tpu_torch.apps.benchmark --device cuda --synthetic 20 \
       --window_size 8 --chunk_size 2 --fused_preprocess 1 --checkpoint_every 16
+  python -m dynaboa_tpu_torch.apps.benchmark --device cuda --synthetic 12 \
+      --parallel_streams 2 --compute_dtype bfloat16
 """
 
 from __future__ import annotations
@@ -88,7 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "whose checkpoint writer has no duty-cycle bound")
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--profile_dir", type=str, default=None)
-    p.add_argument("--parallel_streams", type=int, default=0)
+    p.add_argument("--parallel_streams", type=int, default=0,
+                   help="run N independent adaptation streams (whole (seq, "
+                        "person) tracks per stream, private weights each; 0 "
+                        "= one sequential pass); writes res.txt only, and "
+                        "--save_res, --checkpoint_every/--resume, "
+                        "--window_size, --chunk_size, --auto_reset and "
+                        "--profile_dir do not apply and error if set")
     p.add_argument("--chunk_size", type=int, default=1)
     p.add_argument("--window_size", type=int, default=1)
     p.add_argument("--defer_window", type=int, default=32,
@@ -99,7 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="smoke mode: tiny network + body model")
     p.add_argument("--fused_preprocess", type=int, default=0, choices=[0, 1])
     p.add_argument("--compute_dtype", type=str, default="float32",
-                   choices=["float32", "bfloat16"])
+                   choices=["float32", "bfloat16"],
+                   help="backbone convolution precision; params and updates "
+                        "stay float32")
     p.add_argument("--use_pallas_lbs", type=int, default=0, choices=[0, 1],
                    help="Hopper skinning kernel for the no-grad SMPL decodes")
     return p
@@ -145,19 +156,37 @@ def tiny_kwargs(args) -> dict:
                                   regressor_dim=128), num_vertices=256)
 
 
-def refuse_unported(args) -> None:
+def refuse_sequential_flags(args) -> None:
+    """The parallel path's artifacts are res.txt alone: flags of the
+    sequential runner are an error rather than silently ignored."""
+    ignored = {"--save_res": args.save_res,
+               "--checkpoint_every": args.checkpoint_every,
+               "--resume": args.resume,
+               "--window_size": args.window_size != 1,
+               "--chunk_size": args.chunk_size != 1,
+               "--auto_reset": args.auto_reset,
+               "--profile_dir": args.profile_dir}
+    bad = [k for k, v in ignored.items() if v]
+    if bad:
+        raise SystemExit(
+            f"--parallel_streams does not support {', '.join(bad)}: "
+            "the parallel path writes the reduced artifact set "
+            "(res.txt) and runs streams without "
+            "checkpoint/window/chunk/reset machinery")
+
+
+def refuse_parallel_streams(args, app: str) -> None:
+    """The internet and stream apps run the sequential runner only."""
     if args.parallel_streams:
-        raise SystemExit("not ported to dynaboa_tpu_torch yet: "
-                         "--parallel_streams")
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: the PyTorch port runs "
-            "float32 only")
+        raise SystemExit(f"--parallel_streams applies to the benchmark CLI "
+                         f"(dynaboa_tpu_torch.apps.benchmark); the {app} app "
+                         "runs one sequential stream")
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    if args.parallel_streams:
+        refuse_sequential_flags(args)
     exppath = osp.join(args.expdir, args.expname)
     os.makedirs(exppath, exist_ok=True)
 
@@ -180,9 +209,30 @@ def main(argv=None):
     if any(system.synthetic.values()):
         print(f"---> synthetic stand-ins active: "
               f"{[k for k, v in system.synthetic.items() if v]}")
+    if args.parallel_streams:
+        return run_parallel_streams(system, stream, args, exppath)
     return run_stream(system, stream, args, exppath,
                       save_predictions=bool(args.save_res),
                       img_root=paths.pw3d_root)
+
+
+def run_parallel_streams(system, stream, args, exppath: str) -> dict:
+    """``--parallel_streams N``: the stream split into N independent
+    streams, adapted on ``--device`` (every CUDA card for ``cuda``); writes
+    res.txt and returns the run summary."""
+    from dynaboa_tpu_torch.parallel import streams as P
+
+    groups = P.partition_items(stream, args.parallel_streams)
+    devices = None if args.device == "cuda" else [system.device]
+    summary = P.run_parallel(system.engine, system.params, groups,
+                             devices=devices,
+                             keypoint_source=system.cfg.keypoint_source,
+                             progress_every=max(64,
+                                                64 * args.parallel_streams))
+    with open(osp.join(exppath, "res.txt"), "w") as f:
+        f.write(f"MPJPE:{summary['mpjpe']}, PAMPJPE:{summary['pampjpe']}, "
+                f"PVE:{summary['pve']}\n")
+    return summary
 
 
 def run_stream(system, stream, args, exppath: str, save_predictions: bool,

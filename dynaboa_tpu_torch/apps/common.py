@@ -72,12 +72,17 @@ def build_system(cfg: AdaptConfig, paths: Paths | None, device,
     """``model_kwargs``/``num_vertices`` shrink the network and body model
     (smoke mode; real checkpoints need the full defaults).
     ``compute_metrics=False`` is for unlabeled streams (see
-    ``BilevelEngine``)."""
+    ``BilevelEngine``).  ``cfg.compute_dtype`` sets the backbone's
+    precision (``models/hmr.py``)."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available")
+        if cfg.compute_dtype == "bfloat16" and \
+                not torch.cuda.is_bf16_supported():
+            raise RuntimeError("compute_dtype='bfloat16' requested but the "
+                               "CUDA device does not support bfloat16")
         # fp32 means fp32: cuDNN convolutions default to TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -85,12 +90,13 @@ def build_system(cfg: AdaptConfig, paths: Paths | None, device,
     synthetic: dict[str, bool] = {}
 
     if os.path.exists(paths.basemodel) and not model_kwargs:
-        model = load_basemodel(paths.basemodel, device)
+        model = load_basemodel(paths.basemodel, device, cfg.compute_dtype)
         synthetic["weights"] = False
     else:
         mean = (paths.smpl_mean_params
                 if os.path.exists(paths.smpl_mean_params) else None)
-        model = hmr(mean, **(model_kwargs or {}))
+        model = hmr(mean, compute_dtype=cfg.compute_dtype,
+                    **(model_kwargs or {}))
         # weights drawn on the CPU from a seeded generator, so every device
         # starts from the same numbers
         init_weights_(model, torch.Generator().manual_seed(cfg.seed))

@@ -22,8 +22,8 @@ import os
 import os.path as osp
 
 from dynaboa_tpu_torch.apps.benchmark import (build_parser, cfg_from_args,
-                                              refuse_unported, run_stream,
-                                              tiny_kwargs)
+                                              refuse_parallel_streams,
+                                              run_stream, tiny_kwargs)
 
 
 def main(argv=None):
@@ -31,7 +31,7 @@ def main(argv=None):
     parser.set_defaults(dataset="internet", expname="internet",
                         shape_prior_weight=2e-4)
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    refuse_parallel_streams(args, "internet")
     exppath = osp.join(args.expdir, args.expname)
     os.makedirs(exppath, exist_ok=True)
 

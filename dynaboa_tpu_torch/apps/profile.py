@@ -30,6 +30,9 @@ Sections, each printed as it ends:
      blocking save at W = 8; then the resume runs of phase 6 without and
      with deterministic algorithms: run-to-run and resumed differences by
      part of the state, and seconds per window step
+  8. section 4's profile at the default threshold with the backbone in
+     float32 and in bfloat16 (--compute_dtype), one after the other in one
+     process: device time by op, kernel count, idle share and host time
 
   python -m dynaboa_tpu_torch.apps.profile --sections 6 7   # only 6 and 7
 """
@@ -98,13 +101,14 @@ def device_busy(trace_path: str) -> tuple[int, float, float]:
 
 
 def profile_section(tmp: str, device: str, threshold: float, warm: int,
-                    frames: int) -> None:
+                    frames: int, compute_dtype: str = "float32") -> None:
     from dynaboa_tpu_torch.config import AdaptConfig, Paths
     from dynaboa_tpu_torch.apps.common import build_system
     from dynaboa_tpu_torch.data.streams import SyntheticStream
     from dynaboa_tpu_torch.engine.runner import frame_from_item
 
-    cfg = AdaptConfig(cos_sim_threshold=threshold, use_pallas_lbs=True)
+    cfg = AdaptConfig(cos_sim_threshold=threshold, use_pallas_lbs=True,
+                      compute_dtype=compute_dtype)
     system = build_system(cfg, Paths(), device)
     state = system.engine.init_state(system.params, batch_size=1)
     items = list(SyntheticStream(num_frames=warm + frames, seed=22))
@@ -121,12 +125,15 @@ def profile_section(tmp: str, device: str, threshold: float, warm: int,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         steps = [step(item) for item in items[warm:]]
-    label = f"thr={threshold}"
+    label = f"thr={threshold} {compute_dtype}"
     print(f"--- profile {label}: {frames} frames after {warm} warm-up "
           f"frames; extra updates warm-up {warm_steps}, profiled {steps}")
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=30, max_name_column_width=60))
-    trace = os.path.join(tmp, f"trace_{threshold}.json")
+    table = prof.key_averages()
+    print(table.table(sort_by="self_device_time_total", row_limit=30,
+                      max_name_column_width=60))
+    host_ms = sum(e.self_cpu_time_total for e in table) / 1e3 / frames
+    print(f"{label}: host self time {host_ms:.2f} ms per frame")
+    trace = os.path.join(tmp, f"trace_{threshold}_{compute_dtype}.json")
     prof.export_chrome_trace(trace)
     kernels, busy, span = device_busy(trace)
     print(f"{label}: {kernels} device kernels over {frames} frames; busy "
@@ -318,7 +325,7 @@ def checkpoint_section(tmp: str, device: str, rounds: int = 3) -> None:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--sections", type=int, nargs="*",
-                   default=[1, 2, 3, 4, 5, 6, 7])
+                   default=[1, 2, 3, 4, 5, 6, 7, 8])
     sections = set(p.parse_args(argv).sections)
     if not torch.cuda.is_available():
         raise SystemExit("the profile needs a CUDA device")
@@ -344,6 +351,10 @@ def main(argv=None) -> None:
             window_section(tmp, device)
         if 7 in sections:
             checkpoint_section(tmp, device)
+        if 8 in sections:
+            for dtype in ("float32", "bfloat16"):
+                profile_section(tmp, device, 3.1e-4, warm=3, frames=2,
+                                compute_dtype=dtype)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

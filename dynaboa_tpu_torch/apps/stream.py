@@ -456,11 +456,12 @@ def build(args):
     """The stream app's system from its parsed arguments: the benchmark
     CLI's configuration with the OpenPose keypoint source, no metrics."""
     from dynaboa_tpu_torch.apps.benchmark import (cfg_from_args,
-                                                  refuse_unported, tiny_kwargs)
+                                                  refuse_parallel_streams,
+                                                  tiny_kwargs)
     from dynaboa_tpu_torch.apps.common import build_system
     from dynaboa_tpu_torch.config import Paths
 
-    refuse_unported(args)
+    refuse_parallel_streams(args, "stream")
     cfg = cfg_from_args(args).replace(keypoint_source="openpose")
     return build_system(cfg, Paths(basemodel=args.model_file), args.device,
                         compute_metrics=False, **tiny_kwargs(args))

@@ -76,16 +76,21 @@ class AdaptConfig:
     # path (the kernel has no backward).  The name is the JAX package's.
     use_pallas_lbs: bool = False
 
-    # backbone compute precision; the port runs "float32" only
+    # backbone convolution precision: "bfloat16" runs them under autocast;
+    # GroupNorm, the regressor, params, optimizer state and every update
+    # stay float32 (mixed-precision compute, not low-precision training)
     compute_dtype: str = "float32"
 
     # keypoint source for the 2D losses: 'gt' uses joints [25:] (benchmark /
     # internet paths), 'openpose' uses joints [:25] (webcam path)
     keypoint_source: str = "gt"
 
-    # worst-case latency experiments of the JAX package (documented protocol
-    # divergences, off by default); the port's engine refuses them
+    # worst-case latency experiments (documented protocol divergences, off
+    # by default): the dynamic extra updates drop the retrieved exemplar and
+    # its labeled loss (the first update keeps the full loss) ...
     fast_extra_updates: bool = False
+    # ... and the post-update probe forward runs on the image average-pooled
+    # by this factor, with one full-resolution forward for the prediction
     probe_res_factor: int = 1
 
     def replace(self, **kw) -> "AdaptConfig":

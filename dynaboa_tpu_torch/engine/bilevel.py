@@ -31,6 +31,17 @@ cosine per window.  Predictions and metrics stay per row.
 metric evaluation: metrics come out as zeros and there are no per-update
 records.
 
+The model's ``compute_dtype`` decides the backbone's precision (see
+``models/hmr.py``); autocast ends inside the model, so the SMPL decodes,
+losses, metrics, gate, Adam and the teacher EMA always run in float32.
+
+The JAX package's two worst-case latency experiments (off by default):
+``cfg.fast_extra_updates`` drops the retrieved exemplar and its labeled loss
+from the extra updates' batch (update 0 keeps the full loss), and
+``cfg.probe_res_factor = f`` runs the post-update probe forward on the image
+average-pooled by ``f``, with one full-resolution forward after the loop for
+the final prediction.
+
 The state is updated in place: ``step`` returns the same ``AdaptState`` it
 was given.
 """
@@ -86,13 +97,6 @@ class BilevelEngine:
     def __init__(self, cfg: AdaptConfig, model: HMR, prior: GMMPrior,
                  smpls: GenderedSMPL, store: RetrievalStore | None = None,
                  compute_metrics: bool = True):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port runs "
-                "float32 only")
-        if cfg.fast_extra_updates or cfg.probe_res_factor != 1:
-            raise NotImplementedError(
-                "fast_extra_updates / probe_res_factor are not ported")
         if cfg.mixtrain and store is None:
             raise ValueError("mixtrain requires a RetrievalStore")
         self.cfg = cfg
@@ -146,9 +150,10 @@ class BilevelEngine:
         return (t_rotmat, t_shape, t_s2d, t_s3d)
 
     def _partial_level(self, params, frame: Frame, state: AdaptState, bank,
-                       level: str):
+                       level: str, mixtrain=None):
         """Lower/upper loss without the teacher term: the frame, history and
-        exemplar rows in one batched forward."""
+        exemplar rows in one batched forward.  ``mixtrain=False`` drops the
+        exemplar row (``fast_extra_updates``)."""
         cfg = self.cfg
         use_frame = (cfg.use_frame_losses_lower if level == "lower"
                      else cfg.use_frame_losses_upper)
@@ -156,6 +161,8 @@ class BilevelEngine:
                         else cfg.use_temporal_losses_upper)
         use_mixtrain = (cfg.lower_level_mixtrain if level == "lower"
                         else cfg.upper_level_mixtrain)
+        if mixtrain is not None:
+            use_mixtrain = mixtrain
         use_motion = use_temporal and cfg.use_motion
 
         B = frame.image.shape[0]
@@ -212,10 +219,10 @@ class BilevelEngine:
         return loss, touts, feats, aux
 
     def _level_loss(self, params, frame, state, bank, level,
-                    teacher_params=None):
+                    teacher_params=None, mixtrain=None):
         """Full loss at one level: partial terms + teacher distillation."""
         loss, touts, feats, aux = self._partial_level(params, frame, state,
-                                                      bank, level)
+                                                      bank, level, mixtrain)
         if self._teacher_active(level):
             t_out = self._teacher_outs(
                 state.teacher_params if teacher_params is None
@@ -227,9 +234,9 @@ class BilevelEngine:
         return loss, feats, aux
 
     def _value_and_grad(self, params, frame, state, bank, level,
-                        teacher_params=None):
+                        teacher_params=None, mixtrain=None):
         loss, feats, aux = self._level_loss(params, frame, state, bank, level,
-                                            teacher_params)
+                                            teacher_params, mixtrain)
         grads = torch.autograd.grad(loss, list(params.values()))
         return (loss.detach(), tuple(f.detach() for f in feats),
                 {k: v.detach() for k, v in aux.items()}, grads)
@@ -281,6 +288,19 @@ class BilevelEngine:
                 "optim_steps to sweep beyond it")
         return int(extra_cap)
 
+    def _probe_image(self, image):
+        """The post-update probe's input: the image itself, or with
+        ``cfg.probe_res_factor = f`` the image average-pooled by ``f``."""
+        pf = self.cfg.probe_res_factor
+        if pf == 1:
+            return image
+        B, H, W, C = image.shape
+        if H % pf or W % pf:
+            raise ValueError(
+                f"probe_res_factor={pf} must divide the image resolution "
+                f"{H}x{W} (the probe average-pools by integer factor)")
+        return image.reshape(B, H // pf, pf, W // pf, pf, C).mean(dim=(2, 4))
+
     def run_chunk(self, state: AdaptState, frames: list[Frame],
                   cos_sim_threshold=None, extra_cap=None):
         """Adapt over a chunk of frames (or windows).  Unlike the JAX
@@ -314,6 +334,7 @@ class BilevelEngine:
                                           frame.gender)
 
         if cfg.use_boa:
+            probe_image = self._probe_image(frame.image)
             with torch.no_grad():
                 rotmat0, shape0, cam0, init_feats = self._forward(
                     state.params, frame.image)
@@ -348,18 +369,32 @@ class BilevelEngine:
             losses = torch.zeros((max_updates,), device=dev)
             recs = (torch.zeros((3, max_updates, B), device=dev)
                     if self._record_dynamic else None)
-            pred_c = (rotmat0, shape0, cam0, init_feats)
+            # the carried prediction is the probe's: with a reduced-resolution
+            # probe, a probe-resolution forward at the pre-update params, so
+            # the gate compares taps of one resolution
+            if probe_image is frame.image:
+                pred_c = (rotmat0, shape0, cam0, init_feats)
+            else:
+                with torch.no_grad():
+                    pred_c = self._forward(state.params, probe_image)
             upper_aux: dict = {}
             sim = None
             n = 0
             while n < max_updates and (
                     n == 0 or (n <= cap and bool((1.0 - sim) > thr))):
+                # fast_extra_updates: the extra updates leave out the
+                # exemplar row, so they draw none.  (The JAX engine zero-fills
+                # their missing labeled aux keys to give both lax.cond
+                # branches one structure; here only update 0's aux is kept.)
+                fast = (n > 0 and cfg.fast_extra_updates
+                        and cfg.upper_level_mixtrain)
                 # update 0 retrieves off the carried pre-inner features
-                bank = self._retrieve(pred_c[3][5][0], state.rng)
+                bank = (None if fast
+                        else self._retrieve(pred_c[3][5][0], state.rng))
                 eval_params = learner if n == 0 else state.params
                 ul, _, aux, g = self._value_and_grad(
                     eval_params, frame, state, bank, "upper",
-                    state.teacher_params)
+                    state.teacher_params, mixtrain=False if fast else None)
                 aux["loss"] = ul
                 losses[n] = ul
                 self._outer_update(g, state)
@@ -368,7 +403,7 @@ class BilevelEngine:
                 with torch.no_grad():
                     # post-update forward: the gate signal, and the final
                     # prediction when the loop stops here
-                    post = self._forward(state.params, frame.image)
+                    post = self._forward(state.params, probe_image)
                     sim = feature_cosine_similarities(
                         (pred_c[3][12],), (post[3][12],))[0]
                     sims[n] = sim
@@ -406,6 +441,9 @@ class BilevelEngine:
 
         with torch.no_grad():
             if cfg.use_boa:
+                if probe_image is not frame.image:
+                    # the probe's outputs are not the prediction
+                    pred_c = self._forward(state.params, frame.image)
                 rotmat_f, shape_f, cam_f, feats_f = pred_c
                 s3d_f, verts_f = self._decode(rotmat_f, shape_f, no_grad=True)
                 pred = dict(rotmat=rotmat_f, shape=shape_f, cam=cam_f,

@@ -321,6 +321,8 @@ class StreamRunner:
         summary["engine_steps"] = state.step
         summary["param_devices"] = sorted({str(p.device)
                                            for p in state.params.values()})
+        summary["param_dtypes"] = sorted({str(p.dtype).removeprefix("torch.")
+                                          for p in state.params.values()})
         return state, summary
 
     # -- checkpoints -----------------------------------------------------------

@@ -16,6 +16,13 @@ state_dict loads directly once its ``module.`` prefix is stripped.
 Tap 5 feeds retrieval; tap 12 is the dynamic-BOA convergence signal.  The
 SMPL mean parameters are buffers, so they are neither adapted nor in the
 parameter dict the engine differentiates.
+
+``compute_dtype="bfloat16"`` runs the backbone's convolutions (``conv1``
+through ``layer4``) under ``torch.autocast`` in bfloat16, as the JAX model's
+``compute_dtype`` does: tap 0 (a convolution's output) is bfloat16, GroupNorm
+and everything after it float32.  The regressor runs outside autocast, in
+float32 like the JAX model's ``nn.Dense`` layers; parameters, gradients and
+every update stay float32.
 """
 
 from __future__ import annotations
@@ -25,16 +32,29 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as nnf
 
 from dynaboa_tpu_torch.ops.rotations import rot6d_to_rotmat
 
 NPOSE = 24 * 6
 _MEAN_KEYS = ("init_pose", "init_shape", "init_cam")
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm computed in float32 whatever its input's dtype.  Autocast
+    keeps ``group_norm`` in float32 on the card but not on the CPU, so the
+    cast is made here, as the JAX GroupNorm reduces a bfloat16 input in
+    float32."""
+
+    def forward(self, x):
+        return nnf.group_norm(x.float(), self.num_groups, self.weight,
+                              self.bias, self.eps)
 
 
 def _gn(channels: int) -> nn.GroupNorm:
     # GroupNorm(4 groups), eps 1e-5
-    return nn.GroupNorm(4, channels, eps=1e-5)
+    return GroupNorm32(4, channels, eps=1e-5)
 
 
 class Bottleneck(nn.Module):
@@ -64,8 +84,13 @@ class Bottleneck(nn.Module):
 class HMR(nn.Module):
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  regressor_dim: int = 1024, n_iter: int = 3,
-                 mean_pose=None, mean_shape=None, mean_cam=None):
+                 mean_pose=None, mean_shape=None, mean_cam=None,
+                 compute_dtype: str = "float32"):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype={compute_dtype!r}, expected one "
+                             f"of {COMPUTE_DTYPES}")
+        self.compute_dtype = compute_dtype
         self.layers_cfg = tuple(layers)
         self.width = width
         self.regressor_dim = regressor_dim
@@ -110,12 +135,14 @@ class HMR(nn.Module):
         """x: (B, 3, H, W), ImageNet-normalized."""
         B = x.shape[0]
         features = []
-        x = self.conv1(x)
-        features.append(x)                       # tap 0: pre-GN conv1 out
-        x = self.maxpool(self.relu(self.bn1(x)))
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = layer(x)
-            features.append(x)                   # taps 1-4
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=self.compute_dtype == "bfloat16"):
+            x = self.conv1(x)
+            features.append(x)                   # tap 0: pre-GN conv1 out
+            x = self.maxpool(self.relu(self.bn1(x)))
+            for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+                x = layer(x)
+                features.append(x)               # taps 1-4
         xf = x.mean(dim=(2, 3))
         features.append(xf)                      # tap 5: retrieval feature
 
@@ -176,10 +203,10 @@ def hmr(mean_params_path: str | None = None, **kwargs) -> HMR:
     return HMR(**kwargs)
 
 
-def load_basemodel(path: str, device) -> HMR:
+def load_basemodel(path: str, device, compute_dtype: str = "float32") -> HMR:
     """Load the reference ``basemodel.pt`` (a ``model`` key holding a
     possibly ``module.``-prefixed HMR state_dict).  The topology is read
-    from the state_dict itself."""
+    from the state_dict itself; ``compute_dtype`` as in ``HMR``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     state = {k.replace("module.", ""): v
              for k, v in ckpt.get("model", ckpt).items()}
@@ -188,7 +215,8 @@ def load_basemodel(path: str, device) -> HMR:
                    for i in (1, 2, 3, 4))
     model = HMR(layers=layers,
                 width=int(state["conv1.weight"].shape[0]),
-                regressor_dim=int(state["fc1.weight"].shape[0]))
+                regressor_dim=int(state["fc1.weight"].shape[0]),
+                compute_dtype=compute_dtype)
     missing, unexpected = model.load_state_dict(state, strict=False)
     missing = [k for k in missing if k not in _MEAN_KEYS]
     if missing or unexpected:

@@ -121,10 +121,39 @@ def test_cli_runs_ported_flags(flag, tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
-        benchmark.main(["--device", "cpu", "--tiny", "1", "--expdir",
-                        str(tmp_path), "--synthetic", "2",
-                        "--parallel_streams", "2"])
+    """--parallel_streams runs: res.txt alone, in the JAX format, with
+    finite numbers; the sequential runner's flags are refused beside it
+    with the JAX CLI's message."""
+    summary = _tiny(tmp_path, "--synthetic", "5", "--parallel_streams", "2")
+    text = (tmp_path / "run" / "res.txt").read_text()
+    values = [float(part.split(":")[1]) for part in text.strip().split(", ")]
+    assert [part.split(":")[0] for part in text.strip().split(", ")] == [
+        "MPJPE", "PAMPJPE", "PVE"]
+    assert np.isfinite(values).all()
+    assert values == [summary["mpjpe"], summary["pampjpe"], summary["pve"]]
+    assert [p["frames"] for p in summary["per_stream"]] == [3, 2]
+    assert not (tmp_path / "run" / "scalars.jsonl").exists()
+    with pytest.raises(SystemExit, match="--parallel_streams does not "
+                                         "support --window_size: the "
+                                         "parallel path writes the reduced "
+                                         "artifact set"):
+        _tiny(tmp_path, "--synthetic", "2", "--parallel_streams", "2",
+              "--window_size", "2")
+
+
+@pytest.mark.parametrize("app", ["internet", "stream"])
+def test_apps_refuse_parallel_streams(app, tmp_path):
+    """The internet and stream apps run one sequential stream."""
+    import importlib
+
+    mod = importlib.import_module(f"dynaboa_tpu_torch.apps.{app}")
+    argv = ["--device", "cpu", "--tiny", "1", "--expdir", str(tmp_path),
+            "--parallel_streams", "2"]
+    with pytest.raises(SystemExit, match="applies to the benchmark CLI"):
+        if app == "stream":
+            mod.build(mod.build_parser().parse_args(argv))
+        else:
+            mod.main(argv + ["--synthetic", "2"])
 
 
 def test_internet_cli_writes_every_prediction(tmp_path):
@@ -146,10 +175,32 @@ def test_internet_cli_writes_every_prediction(tmp_path):
 
 
 def test_cli_bf16_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError):
-        benchmark.main(["--device", "cpu", "--tiny", "1", "--synthetic", "2",
-                        "--expdir", str(tmp_path), "--compute_dtype",
-                        "bfloat16"])
+    """--compute_dtype bfloat16 runs: finite metrics, and the checkpointed
+    params, teacher and Adam moments are float32."""
+    from dynaboa_tpu_torch.engine.checkpoint import read_groups
+
+    summary = _tiny(tmp_path, "--synthetic", "2", "--compute_dtype",
+                    "bfloat16", "--checkpoint_every", "2")
+    assert summary["frames"] == 2 and summary["param_dtypes"] == ["float32"]
+    for k in ("mpjpe", "pampjpe", "pve"):
+        assert np.isfinite(summary[k]), k
+    groups = read_groups(str(tmp_path / "run" / "checkpoint.npz"))
+    for part in ("params", "teacher", "mu", "nu"):
+        assert {a.dtype for a in groups[part]} == {np.dtype(np.float32)}
+    assert "compute_dtype : bfloat16" in (
+        tmp_path / "run" / "setting.txt").read_text()
+
+
+def test_internet_cli_runs_bf16(tmp_path):
+    from dynaboa_tpu_torch.apps import internet
+
+    internet.main(["--device", "cpu", "--tiny", "1", "--synthetic", "2",
+                   "--expdir", str(tmp_path), "--optim_steps", "1",
+                   "--compute_dtype", "bfloat16"])
+    for i in range(2):
+        pred = np.load(tmp_path / "internet" / "result" / f"Pred_{i}.npz")
+        assert pred["verts"].dtype == np.float32
+        assert np.isfinite(pred["verts"]).all()
 
 
 def test_cli_defaults_to_cuda():

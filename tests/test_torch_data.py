@@ -126,6 +126,7 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(mods) >= 20
+    assert "dynaboa_tpu_torch.parallel.streams" in mods
 
 
 def test_chip_smoke_names_no_jax_module():

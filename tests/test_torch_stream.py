@@ -258,7 +258,9 @@ def video(tmp_path_factory):
 
 @pytest.mark.parametrize("flags,width", [((), W),
                                          (("--fused_preprocess", "1"), W),
-                                         (("--test_basemodel", "1"), 2 * W)])
+                                         (("--test_basemodel", "1"), 2 * W),
+                                         (("--compute_dtype", "bfloat16"),
+                                          W)])
 def test_cli_on_a_video(video, tmp_path, flags, width):
     d, n = video
     out = str(tmp_path / "out.mp4")
