@@ -65,6 +65,23 @@ Phases, each of which raises (non-zero exit) on failure:
      probe_res_factor 2 and with neither, the arms in turns frame by frame;
      every frame takes 7 extra updates, outputs are finite, ms per frame
      after the first
+ 13. offline preparation and fitting at full size, none of which runs the
+     skinning kernel (its count over the phase is reported): (a) SMPLify
+     at B = 64 with 100 iterations per stage on the V = 6890 body and the
+     shipped GMM prior (finite, on the card, the reprojection falls), and a
+     V = 256, B = 2, 30-iteration fit on the card and on the CPU within
+     num_iters * lr; (b) the dual-head BatchNorm HMRISO at full width with
+     seeded weights and running statistics at B = 1 and 8, card against
+     CPU, ms per forward; (c) `process_data --dataset 3dpw` in its own
+     process (PW3D_ROOT, SMPL_MODEL_DIR, a temp working directory) over a
+     synthetic test split in 3DPW's layout: 24 pickles, 37 tracks, about
+     35k frames with invalid camera frames mixed in, V = 6890 gendered SMPL
+     npz files; 37 archives with their valid frame counts, sequence 0
+     against a CPU run, frames/s and the decode's seconds against the
+     host's; (d) the retrieval store's features and k = 10 clusters over 256
+     synthetic crops through the full-width HMR, 8 crops' tap 5 card
+     against CPU, crops/s.  Its numbers are printed as one JSON line
+     {"offline": {...}} before the kernels line
 
 Phases 3, 5-12 each set the kernel's launch count to 0 just before
 they drive their path and read it just after; each must launch it.  The
@@ -75,6 +92,8 @@ the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -967,6 +986,409 @@ def experiments_phase(torch, dev):
     return launches, ms
 
 
+# -- phase 13: offline preparation and fitting ---------------------------------
+
+SMPLIFY_B, SMPLIFY_ITERS = 64, 100   # SPIN's batch; SMPLify's default
+SMPLIFY_TINY = dict(num_vertices=256, batch=2, num_iters=30)
+SMPLIFY_LR = 1e-2                        # SMPLify's default step size
+ISO_BATCHES = (1, 8)
+ISO_ATOL = 1e-4        # card vs CPU, fp32 with TF32 off (HMR tap tolerance)
+PW3D_TRACKS, PW3D_TWO_PERSON, PW3D_FRAMES = 37, 13, 35_000
+PW3D_J3D_ATOL = 1e-5   # metres; the CPU tests' tolerance for j3d and pose
+PW3D_POSE_ATOL = 1e-5  # radians
+RETRIEVAL_CROPS, RETRIEVAL_K = 256, 10
+TAP_RTOL = TAP_ATOL = 1e-4   # the HMR tap tolerance of the CPU tests
+
+
+def write_smpl_npz(path: str, seed: int, num_vertices: int) -> None:
+    """A synthetic SMPL model in the converted-npz layout that
+    ``load_smpl_npz`` reads (``tools/convert_smpl.py``'s keys)."""
+    import numpy as np
+
+    from dynaboa_tpu_torch.models.smpl import synthetic_smpl_model
+
+    m = synthetic_smpl_model(seed, "cpu", num_vertices=num_vertices)
+    np.savez(path, v_template=m.v_template.numpy(),
+             shapedirs=m.shapedirs.numpy(), posedirs=m.posedirs.numpy(),
+             J_regressor=m.J_regressor.numpy(), weights=m.lbs_weights.numpy(),
+             kintree_parents=np.asarray(m.parents, np.int32), f=m.faces,
+             J_regressor_extra=m.J_regressor_extra.numpy())
+
+
+def pw3d_layout(total_frames: int, two_person: int = PW3D_TWO_PERSON,
+                seed: int = 0):
+    """Frames and people per sequence of the 24: ``two_person`` sequences
+    with a second person, frame counts scaled so that the tracks hold about
+    ``total_frames`` frames in all."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    people = np.ones(24, np.int64)
+    people[rng.choice(24, size=two_person, replace=False)] = 2
+    raw = rng.uniform(0.5, 1.5, size=24)
+    frames = np.maximum(1, np.round(raw * total_frames / (raw * people).sum()))
+    return [int(f) for f in frames], [int(p) for p in people]
+
+
+def write_pw3d_tree(root: str, seq_frames, people, seed: int = 0):
+    """The 24 test pickles of ``pw3d.SEQUENCE_ORDER`` in 3DPW's layout
+    under ``root/sequenceFiles/test``, with random bodies, cameras about
+    5 m in front of them and about one frame in ten ``campose_valid`` = 0.
+    Returns the valid frame count of every (sequence, person) track."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from dynaboa_tpu_torch.data.preprocess.pw3d import SEQUENCE_ORDER
+    from dynaboa_tpu_torch.ops.rotations import batch_rodrigues
+
+    rng = np.random.default_rng(seed)
+    out = os.path.join(root, "sequenceFiles", "test")
+    os.makedirs(out, exist_ok=True)
+    valid_counts = {}
+    for s, name in enumerate(SEQUENCE_ORDER):
+        n, p = seq_frames[s], people[s]
+        rot = batch_rodrigues(torch.as_tensor(
+            rng.normal(scale=0.1, size=(n, 3)), dtype=torch.float32)).numpy()
+        cam = np.tile(np.eye(4, dtype=np.float64), (n, 1, 1))
+        cam[:, :3, :3] = rot
+        cam[:, :3, 3] = rng.normal(scale=0.1, size=(n, 3)) + [0, 0, 5.0]
+        valid = [(rng.uniform(size=n) > 0.1).astype(np.int64)
+                 for _ in range(p)]
+        for v in valid:
+            v[0] = 1                             # every track keeps a frame
+        data = {
+            "sequence": name[:-4], "img_frame_ids": np.arange(n),
+            "poses": [rng.normal(scale=0.2, size=(n, 72)) for _ in range(p)],
+            "betas": [rng.normal(scale=0.5, size=300) for _ in range(p)],
+            "trans": [rng.normal(scale=0.2, size=(n, 3)) for _ in range(p)],
+            "poses2d": [np.concatenate([
+                rng.uniform(0, 1080, size=(n, 2, 18)),
+                rng.uniform(0, 1, size=(n, 1, 18))], 1) for _ in range(p)],
+            "cam_poses": cam,
+            "cam_intrinsics": np.array([[1000.0, 0, 540], [0, 1000.0, 960],
+                                        [0, 0, 1]]),
+            "genders": ["m", "f"][:p] if s % 2 == 0 else ["f", "m"][:p],
+            "campose_valid": valid,
+        }
+        with open(os.path.join(out, name), "wb") as f:
+            pickle.dump(data, f, protocol=2)
+        for pid, v in enumerate(valid):
+            valid_counts[s, pid] = int(v.sum())
+    return valid_counts
+
+
+def smplify_inputs(torch, smpl, batch: int, seed: int):
+    """Keypoints projected from known bodies at 10 m and a perturbed
+    initial pose (the recipe of the JAX package's SMPLify test), as numpy:
+    init_pose, init_betas, cam_t, center, keypoints."""
+    import numpy as np
+
+    from dynaboa_tpu_torch.models.smpl import smpl_forward
+    from dynaboa_tpu_torch.ops.camera import perspective_projection
+
+    rng = np.random.default_rng(seed)
+    dev = smpl.v_template.device
+    gt_pose = rng.normal(scale=0.15, size=(batch, 72)).astype(np.float32)
+    gt_betas = rng.normal(scale=0.3, size=(batch, 10)).astype(np.float32)
+    cam_t = np.tile([0.0, 0.0, 10.0], (batch, 1)).astype(np.float32)
+    center = np.full((batch, 2), 112.0, np.float32)
+    with torch.no_grad():
+        joints = smpl_forward(smpl, torch.as_tensor(gt_betas, device=dev),
+                              torch.as_tensor(gt_pose, device=dev),
+                              pose2rot=True).joints
+        eye = torch.eye(3, device=dev).expand(batch, 3, 3)
+        j2d = perspective_projection(joints, eye,
+                                     torch.as_tensor(cam_t, device=dev),
+                                     5000.0, torch.as_tensor(center,
+                                                             device=dev))
+    kp = np.concatenate([j2d.cpu().numpy(), np.ones((batch, 49, 1))],
+                        -1).astype(np.float32)
+    init_pose = (gt_pose + 0.2 * rng.normal(size=(batch, 72))).astype(
+        np.float32)
+    return [init_pose, np.zeros((batch, 10), np.float32), cam_t, center, kp]
+
+
+def smplify_phase(torch, dev):
+    """SMPLify at SPIN's batch on the card from the shipped GMM prior and
+    the V = 6890 synthetic body; then a tiny fit on the card and on the CPU
+    from the same inputs."""
+    import numpy as np
+
+    from dynaboa_tpu_torch.losses.priors import (default_gmm_path,
+                                                 load_gmm_prior)
+    from dynaboa_tpu_torch.models.smpl import synthetic_smpl_model
+    from dynaboa_tpu_torch.smplify import SMPLify
+
+    smpl = synthetic_smpl_model(20, dev)
+    fitter = SMPLify(smpl, load_gmm_prior(default_gmm_path(), dev),
+                     num_iters=SMPLIFY_ITERS)
+    args = smplify_inputs(torch, smpl, SMPLIFY_B, seed=0)
+    before = fitter.get_fitting_loss(*args)
+    # a 2-iteration fit first: the first backward passes in a process pay
+    # for library set-up, which is no part of a fit's steady cost
+    SMPLify(smpl, fitter.prior, num_iters=2)(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fitter(*args)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    for name, o in zip(("vertices", "joints", "pose", "betas", "camera_t",
+                        "reprojection"), out):
+        if o.device != dev or not torch.isfinite(o).all():
+            raise RuntimeError(f"SMPLify {name}: on {o.device}, finite "
+                               f"{bool(torch.isfinite(o).all())}")
+    loss_before, loss_after = float(before.sum()), float(out[5].sum())
+    if not loss_after < loss_before:
+        raise RuntimeError(f"SMPLify: reprojection {loss_after} after the "
+                           f"fit, {loss_before} before")
+    its = 2 * SMPLIFY_ITERS / fit_s
+    print(f"SMPLify B={SMPLIFY_B} V=6890, {SMPLIFY_ITERS} iterations per "
+          f"stage: {fit_s:.3f} s per fit, {its:.1f} iterations/s; "
+          f"reprojection {loss_before:.1f} -> {loss_after:.1f}", flush=True)
+
+    tiny = SMPLIFY_TINY
+
+    def tiny_fit(d):
+        small = synthetic_smpl_model(20, d, num_vertices=tiny["num_vertices"])
+        f = SMPLify(small, load_gmm_prior(default_gmm_path(), d),
+                    num_iters=tiny["num_iters"])
+        return [o.cpu().numpy() for o in f(*smplify_inputs(
+            torch, small, tiny["batch"], seed=1))]
+
+    card, cpu = tiny_fit(dev), tiny_fit(torch.device("cpu"))
+    bound = tiny["num_iters"] * SMPLIFY_LR
+    gaps = {}
+    # the global orientation steps in both stages, the rest in one
+    for name, i, sl, b in (("global_orient", 2, np.s_[:, :3], 2 * bound),
+                           ("body_pose", 2, np.s_[:, 3:], bound),
+                           ("betas", 3, np.s_[:], bound),
+                           ("camera_t", 4, np.s_[:], bound)):
+        gaps[name] = float(np.abs(card[i][sl] - cpu[i][sl]).max())
+        if not gaps[name] <= b:
+            raise RuntimeError(f"SMPLify card vs CPU: {name} differs by "
+                               f"{gaps[name]}, bound {b}")
+    print(f"SMPLify V={tiny['num_vertices']} B={tiny['batch']} "
+          f"{tiny['num_iters']} iterations, card vs CPU: largest gaps "
+          f"{gaps} within num_iters * lr = {bound}", flush=True)
+    return dict(smplify_s_per_fit=fit_s, smplify_iters_per_s=its,
+                smplify_reproj_before=loss_before,
+                smplify_reproj_after=loss_after,
+                smplify_card_vs_cpu_max_gap=max(gaps.values()))
+
+
+def hmriso_phase(torch, dev):
+    """The dual-head BatchNorm HMRISO at full width, seeded weights and
+    running statistics, eval mode: card against CPU, ms per forward."""
+    import copy
+
+    from dynaboa_tpu_torch.models.hmr import HMRISO, init_weights_
+
+    gen = torch.Generator().manual_seed(22)
+    cpu_net = init_weights_(HMRISO(), gen).eval()
+    with torch.no_grad():
+        for m in cpu_net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    net = copy.deepcopy(cpu_net).to(dev)
+    result = {}
+    for batch in ISO_BATCHES:
+        x = torch.randn(batch, 3, 224, 224, generator=gen)
+        with torch.no_grad():
+            want = cpu_net(x)
+            xd = x.to(dev)
+            got = net(xd)
+            ms = time_cuda(lambda: net(xd), iters=20)
+        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        if len(got) != 6 or not all(torch.isfinite(g).all() for g in got):
+            raise RuntimeError(f"HMRISO B={batch}: outputs not finite")
+        if not err <= ISO_ATOL:
+            raise RuntimeError(f"HMRISO B={batch}: card vs CPU {err} > "
+                               f"{ISO_ATOL}")
+        print(f"HMRISO B={batch}: {ms:.3f} ms per forward; six outputs "
+              f"finite, card vs CPU max abs err {err:.3e} "
+              f"(tolerance {ISO_ATOL})", flush=True)
+        result[f"hmriso_ms_b{batch}"] = ms
+        result[f"hmriso_max_abs_err_b{batch}"] = err
+    return result
+
+
+PW3D_CHILD = r"""
+import json, time
+from dynaboa_tpu_torch.apps import process_data
+from dynaboa_tpu_torch.data.preprocess import pw3d
+spent = {"decode_s": 0.0}
+def timed(fn):
+    def wrap(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)   # ends in a copy to the host, which waits
+        spent["decode_s"] += time.perf_counter() - t0
+        return out
+    return wrap
+pw3d._decode, pw3d._root_to_aa = timed(pw3d._decode), timed(pw3d._root_to_aa)
+t0 = time.perf_counter()
+process_data.main(["--dataset", "3dpw"])
+spent["extract_s"] = time.perf_counter() - t0
+print("PW3D_CHILD " + json.dumps(spent))
+"""
+
+
+def pw3d_phase(torch, tmp, total_frames: int = PW3D_FRAMES):
+    """The process_data CLI's 3DPW branch in a process of its own, with
+    PW3D_ROOT and SMPL_MODEL_DIR set and the working directory in a temp
+    dir, over a synthetic test split of 37 tracks; then one sequence again
+    on the CPU."""
+    import numpy as np
+
+    from dynaboa_tpu_torch.data.preprocess.pw3d import (SEQUENCE_ORDER,
+                                                        pw3d_extract)
+    from dynaboa_tpu_torch.models.smpl import load_smpl_npz
+
+    root, smpl_dir = os.path.join(tmp, "3dpw"), os.path.join(tmp, "smpl")
+    work = os.path.join(tmp, "work")
+    os.makedirs(smpl_dir)
+    os.makedirs(work)
+    for seed, g in ((11, "male"), (12, "female")):
+        write_smpl_npz(os.path.join(smpl_dir, f"smpl_{g}.npz"), seed, 6890)
+    seq_frames, people = pw3d_layout(total_frames)
+    valid = write_pw3d_tree(root, seq_frames, people)
+    if len(valid) != PW3D_TRACKS:
+        raise RuntimeError(f"{len(valid)} tracks in the synthetic split")
+    frames = sum(valid.values())
+
+    env = dict(os.environ, PW3D_ROOT=root, SMPL_MODEL_DIR=smpl_dir)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)),
+                    env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PW3D_CHILD], cwd=work,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"process_data --dataset 3dpw failed:\n"
+                           f"{proc.stderr[-4000:]}")
+    spent = json.loads(proc.stdout.strip().splitlines()[-1].split(" ", 1)[1])
+    out_dir = os.path.join(work, "data", "dataset_extras")
+    written = sorted(os.listdir(out_dir))
+    if len(written) != PW3D_TRACKS:
+        raise RuntimeError(f"{len(written)} archives written, expected "
+                           f"{PW3D_TRACKS}")
+    for (s, p), n in valid.items():
+        d = np.load(os.path.join(out_dir, f"3dpw_{s}_{p}.npz"))
+        for k in ("imgname", "pose", "j3d", "j2d", "op_j2d", "center"):
+            if d[k].shape[0] != n:
+                raise RuntimeError(f"3dpw_{s}_{p}.npz {k}: {d[k].shape[0]} "
+                                   f"frames, {n} valid")
+        if not np.isfinite(d["j3d"]).all():
+            raise RuntimeError(f"3dpw_{s}_{p}.npz: non-finite j3d")
+
+    # sequence 0 again on the CPU: the same pickle, every other sequence
+    # cut to one frame
+    small = os.path.join(tmp, "3dpw_cpu")
+    write_pw3d_tree(small, [1] * 24, people)
+    shutil.copy(os.path.join(root, "sequenceFiles", "test", SEQUENCE_ORDER[0]),
+                os.path.join(small, "sequenceFiles", "test",
+                             SEQUENCE_ORDER[0]))
+    cpu = torch.device("cpu")
+    cpu_out = os.path.join(tmp, "cpu_out")
+    with contextlib.redirect_stdout(io.StringIO()):     # a line per track
+        pw3d_extract(small, cpu_out,
+                     load_smpl_npz(os.path.join(smpl_dir, "smpl_male.npz"),
+                                   cpu),
+                     load_smpl_npz(os.path.join(smpl_dir, "smpl_female.npz"),
+                                   cpu))
+    gaps = {"j3d": 0.0, "pose": 0.0}
+    for p in range(people[0]):
+        a = np.load(os.path.join(out_dir, f"3dpw_0_{p}.npz"))
+        b = np.load(os.path.join(cpu_out, f"3dpw_0_{p}.npz"))
+        for k in gaps:
+            gaps[k] = max(gaps[k], float(np.abs(a[k] - b[k]).max()))
+    if gaps["j3d"] > PW3D_J3D_ATOL or gaps["pose"] > PW3D_POSE_ATOL:
+        raise RuntimeError(f"3DPW sequence 0, card vs CPU: {gaps}")
+    fps = frames / spent["extract_s"]
+    host_s = spent["extract_s"] - spent["decode_s"]
+    print(f"3DPW extraction: {PW3D_TRACKS} tracks, {frames} valid frames of "
+          f"{sum(f * p for f, p in zip(seq_frames, people))}, "
+          f"{spent['extract_s']:.2f} s in the CLI ({wall:.2f} s with the "
+          f"process start): {fps:.1f} frames/s; decode on the card "
+          f"{spent['decode_s']:.2f} s, host numpy and I/O {host_s:.2f} s; "
+          f"sequence 0 ({seq_frames[0]} frames) card vs CPU: j3d "
+          f"{gaps['j3d']:.2e} m, pose {gaps['pose']:.2e}", flush=True)
+    return dict(pw3d_frames=frames, pw3d_frames_per_s=fps,
+                pw3d_extract_s=spent["extract_s"],
+                pw3d_decode_s=spent["decode_s"], pw3d_host_s=host_s,
+                pw3d_card_vs_cpu_j3d=gaps["j3d"],
+                pw3d_card_vs_cpu_pose=gaps["pose"])
+
+
+def retrieval_phase(torch, dev):
+    """The retrieval store's features and clusters over 256 synthetic crops
+    through the full-width HMR (seed 22), k = 10; 8 crops' features card
+    against CPU."""
+    import copy
+
+    import numpy as np
+
+    from dynaboa_tpu_torch.models.hmr import HMR, init_weights_
+    from dynaboa_tpu_torch.tools.build_retrieval import features_and_clusters
+
+    cpu_net = init_weights_(HMR(), torch.Generator().manual_seed(22)).eval()
+    net = copy.deepcopy(cpu_net).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    images = torch.randn(RETRIEVAL_CROPS, 224, 224, 3, generator=gen,
+                         device=dev)
+    features_and_clusters(images[:8], net, 2)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centers, assign, feats = features_and_clusters(images, net, RETRIEVAL_K)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    norms = np.linalg.norm(centers, axis=1)
+    if centers.shape != (RETRIEVAL_K, feats.shape[1]) or \
+            not np.allclose(norms, 1.0, atol=1e-5):
+        raise RuntimeError(f"retrieval centers {centers.shape}, norms {norms}")
+    if assign.shape != (RETRIEVAL_CROPS,) or assign.min() < 0 or \
+            assign.max() >= RETRIEVAL_K:
+        raise RuntimeError(f"retrieval assignments {assign.shape} in "
+                           f"[{assign.min()}, {assign.max()}]")
+    with torch.no_grad():
+        want = cpu_net(images[:8].cpu().permute(0, 3, 1, 2))[3][5].numpy()
+    err = float(np.abs(feats[:8] - want).max())
+    np.testing.assert_allclose(feats[:8], want, rtol=TAP_RTOL, atol=TAP_ATOL)
+    rate = RETRIEVAL_CROPS / secs
+    print(f"retrieval features: {RETRIEVAL_CROPS} crops in {secs:.3f} s, "
+          f"{rate:.1f} crops/s; k={RETRIEVAL_K} cluster sizes "
+          f"{np.bincount(assign, minlength=RETRIEVAL_K).tolist()}, centers "
+          f"unit-norm; tap 5 card vs CPU max abs err {err:.3e}", flush=True)
+    return dict(retrieval_crops_per_s=rate, retrieval_s=secs,
+                retrieval_tap5_max_abs_err=err)
+
+
+def offline_phase(torch, dev, tmp):
+    """Phase 13: SMPLify, HMRISO, the 3DPW extraction and the retrieval
+    features at full size.  None of these paths runs the skinning kernel
+    (SMPLify takes gradients through SMPL, the 3DPW decode runs without
+    it); its count over the phase is reported."""
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+
+    klbs.skin.launches = 0
+    offline = {}
+    for part, fn in (("a SMPLify", lambda: smplify_phase(torch, dev)),
+                     ("b HMRISO", lambda: hmriso_phase(torch, dev)),
+                     ("c 3DPW extraction", lambda: pw3d_phase(torch, tmp)),
+                     ("d retrieval features",
+                      lambda: retrieval_phase(torch, dev))):
+        print(f"--- 13{part}", flush=True)
+        t0 = time.perf_counter()
+        offline.update(fn())
+        offline[f"part_{part.split()[0]}_s"] = time.perf_counter() - t0
+    offline["lbs_skin_launches"] = klbs.skin.launches
+    return offline
+
+
 def main() -> int:
     import torch
 
@@ -1024,6 +1446,8 @@ def main() -> int:
         launches_p, _ = parallel_phase(torch, dev, tmp)
         phase("12 worst-case experiment flags at full width")
         launches_e, _ = experiments_phase(torch, dev)
+        phase("13 offline preparation and fitting at full size")
+        offline = offline_phase(torch, dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1049,6 +1473,7 @@ def main() -> int:
         "geometries": geometries,
     }]
     print(info)
+    print(json.dumps({"offline": offline}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,16 @@ class System:
     synthetic: dict
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device when none
+    is available (no entry point falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device "
+                           "is available")
+    return device
+
+
 def build_smpls(paths: Paths, device, num_vertices: int | None = None
                 ) -> tuple[GenderedSMPL, bool]:
     d = paths.smpl_model_dir
@@ -74,11 +84,8 @@ def build_system(cfg: AdaptConfig, paths: Paths | None, device,
     ``compute_metrics=False`` is for unlabeled streams (see
     ``BilevelEngine``).  ``cfg.compute_dtype`` sets the backbone's
     precision (``models/hmr.py``)."""
-    device = torch.device(device)
+    device = require_device(device)
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but no CUDA device "
-                               "is available")
         if cfg.compute_dtype == "bfloat16" and \
                 not torch.cuda.is_bf16_supported():
             raise RuntimeError("compute_dtype='bfloat16' requested but the "

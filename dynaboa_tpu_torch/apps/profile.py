@@ -33,6 +33,8 @@ Sections, each printed as it ends:
   8. section 4's profile at the default threshold with the backbone in
      float32 and in bfloat16 (--compute_dtype), one after the other in one
      process: device time by op, kernel count, idle share and host time
+  9. SMPLify at B = 64 (SPIN's batch) on the V = 6890 synthetic body, 5
+     iterations per stage: the same tables per iteration
 
   python -m dynaboa_tpu_torch.apps.profile --sections 6 7   # only 6 and 7
 """
@@ -128,17 +130,56 @@ def profile_section(tmp: str, device: str, threshold: float, warm: int,
     label = f"thr={threshold} {compute_dtype}"
     print(f"--- profile {label}: {frames} frames after {warm} warm-up "
           f"frames; extra updates warm-up {warm_steps}, profiled {steps}")
+    report(prof, tmp, label, frames, "frame")
+
+
+def report(prof, tmp: str, label: str, count: int, unit: str) -> None:
+    """Device time by op and kernel, host self time per ``unit``, and the
+    device kernel count, busy time and idle share from the trace."""
     table = prof.key_averages()
     print(table.table(sort_by="self_device_time_total", row_limit=30,
                       max_name_column_width=60))
-    host_ms = sum(e.self_cpu_time_total for e in table) / 1e3 / frames
-    print(f"{label}: host self time {host_ms:.2f} ms per frame")
-    trace = os.path.join(tmp, f"trace_{threshold}_{compute_dtype}.json")
+    host_ms = sum(e.self_cpu_time_total for e in table) / 1e3 / count
+    print(f"{label}: host self time {host_ms:.2f} ms per {unit}")
+    trace = os.path.join(tmp, f"trace_{label.replace(' ', '_')}.json")
     prof.export_chrome_trace(trace)
     kernels, busy, span = device_busy(trace)
-    print(f"{label}: {kernels} device kernels over {frames} frames; busy "
+    print(f"{label}: {kernels} device kernels over {count} {unit}s; busy "
           f"{busy} us of span {span} us -> idle share {1 - busy / span:.3f}",
           flush=True)
+
+
+def smplify_section(tmp: str, device: str, batch: int = 64,
+                    iters: int = 5) -> None:
+    """SMPLify at SPIN's batch on the V = 6890 synthetic body and the
+    shipped prior: one fit of ``iters`` iterations per stage to warm up,
+    then one profiled."""
+    from dynaboa_tpu_torch.losses.priors import (default_gmm_path,
+                                                 load_gmm_prior)
+    from dynaboa_tpu_torch.models.smpl import synthetic_smpl_model
+    from dynaboa_tpu_torch.smplify import SMPLify
+
+    fitter = SMPLify(synthetic_smpl_model(20, device),
+                     load_gmm_prior(default_gmm_path(), device),
+                     num_iters=iters)
+    rng = np.random.default_rng(0)
+    args = [rng.normal(scale=0.2, size=(batch, 72)), np.zeros((batch, 10)),
+            np.tile([0.0, 0.0, 10.0], (batch, 1)), np.full((batch, 2), 112.0),
+            np.concatenate([rng.uniform(60, 164, size=(batch, 49, 2)),
+                            np.ones((batch, 49, 1))], -1)]
+    fitter(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fitter(*args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    label = f"smplify B={batch}"
+    print(f"--- profile {label}: {2 * iters} iterations (profiler on) in "
+          f"{wall:.3f} s")
+    report(prof, tmp, label, 2 * iters, "iteration")
 
 
 def kernel_ab_section(tmp: str, device: str, rounds: int = 4,
@@ -325,7 +366,7 @@ def checkpoint_section(tmp: str, device: str, rounds: int = 3) -> None:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--sections", type=int, nargs="*",
-                   default=[1, 2, 3, 4, 5, 6, 7, 8])
+                   default=[1, 2, 3, 4, 5, 6, 7, 8, 9])
     sections = set(p.parse_args(argv).sections)
     if not torch.cuda.is_available():
         raise SystemExit("the profile needs a CUDA device")
@@ -355,6 +396,8 @@ def main(argv=None) -> None:
             for dtype in ("float32", "bfloat16"):
                 profile_section(tmp, device, 3.1e-4, warm=3, frames=2,
                                 compute_dtype=dtype)
+        if 9 in sections:
+            smplify_section(tmp, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

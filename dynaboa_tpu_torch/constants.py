@@ -35,6 +35,7 @@ JOINT_NAMES = [
     "Jaw (H36M)", "Head (H36M)", "Nose", "Left Eye", "Right Eye",
     "Left Ear", "Right Ear",
 ]
+JOINT_IDS = {name: i for i, name in enumerate(JOINT_NAMES)}
 
 # Index of each SPIN joint inside the 54-joint SMPL output space
 # (24 kinematic + 21 selected vertices + 9 extra regressed joints).

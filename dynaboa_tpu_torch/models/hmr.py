@@ -23,6 +23,9 @@ through ``layer4``) under ``torch.autocast`` in bfloat16, as the JAX model's
 and everything after it float32.  The regressor runs outside autocast, in
 float32 like the JAX model's ``nn.Dense`` layers; parameters, gradients and
 every update stay float32.
+
+``HMRISO`` is the dual-head variant with a BatchNorm backbone (fp32 only);
+``iso_params_from_jax`` carries the JAX package's HMRISO variables across.
 """
 
 from __future__ import annotations
@@ -57,19 +60,24 @@ def _gn(channels: int) -> nn.GroupNorm:
     return GroupNorm32(4, channels, eps=1e-5)
 
 
+def _bn(channels: int) -> nn.BatchNorm2d:
+    # BatchNorm, eps 1e-5; HMRISO runs it in eval() on running statistics
+    return nn.BatchNorm2d(channels, eps=1e-5)
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: nn.Module | None = None):
+                 downsample: nn.Module | None = None, norm=_gn):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = _gn(planes)
+        self.bn1 = norm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = _gn(planes)
+        self.bn2 = norm(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = _gn(planes * 4)
+        self.bn3 = norm(planes * 4)
         self.relu = nn.ReLU()
         self.downsample = downsample
 
@@ -79,6 +87,31 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return self.relu(out + residual)
+
+
+def _register_mean_params(module: nn.Module, mean_pose, mean_shape,
+                          mean_cam) -> None:
+    """The SMPL mean parameters as (1, n) buffers ``init_pose``,
+    ``init_shape`` and ``init_cam``."""
+    for name, v, default in (("init_pose", mean_pose, np.zeros(NPOSE)),
+                             ("init_shape", mean_shape, np.zeros(10)),
+                             ("init_cam", mean_cam, [0.9, 0.0, 0.0])):
+        a = np.asarray(default if v is None else v, np.float32)
+        module.register_buffer(name, torch.as_tensor(a.reshape(1, -1)))
+
+
+def _make_layer(net: nn.Module, planes: int, blocks: int, stride: int,
+                norm) -> nn.Sequential:
+    """One ResNet stage; its first block downsamples. ``net.inplanes``
+    carries the channel count from stage to stage."""
+    downsample = nn.Sequential(
+        nn.Conv2d(net.inplanes, planes * 4, 1, stride=stride, bias=False),
+        norm(planes * 4))
+    mods = [Bottleneck(net.inplanes, planes, stride, downsample, norm)]
+    net.inplanes = planes * 4
+    mods += [Bottleneck(net.inplanes, planes, norm=norm)
+             for _ in range(1, blocks)]
+    return nn.Sequential(*mods)
 
 
 class HMR(nn.Module):
@@ -101,10 +134,10 @@ class HMR(nn.Module):
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.inplanes = w
-        self.layer1 = self._make_layer(w, layers[0], 1)
-        self.layer2 = self._make_layer(2 * w, layers[1], 2)
-        self.layer3 = self._make_layer(4 * w, layers[2], 2)
-        self.layer4 = self._make_layer(8 * w, layers[3], 2)
+        self.layer1 = _make_layer(self, w, layers[0], 1, _gn)
+        self.layer2 = _make_layer(self, 2 * w, layers[1], 2, _gn)
+        self.layer3 = _make_layer(self, 4 * w, layers[2], 2, _gn)
+        self.layer4 = _make_layer(self, 8 * w, layers[3], 2, _gn)
         feat = 8 * w * Bottleneck.expansion
         self.fc1 = nn.Linear(feat + NPOSE + 13, regressor_dim)
         self.drop1 = nn.Dropout(0.5)
@@ -113,23 +146,7 @@ class HMR(nn.Module):
         self.decpose = nn.Linear(regressor_dim, NPOSE)
         self.decshape = nn.Linear(regressor_dim, 10)
         self.deccam = nn.Linear(regressor_dim, 3)
-
-        def mean(v, default):
-            a = np.asarray(default if v is None else v, np.float32)
-            return torch.as_tensor(a.reshape(1, -1))
-
-        self.register_buffer("init_pose", mean(mean_pose, np.zeros(NPOSE)))
-        self.register_buffer("init_shape", mean(mean_shape, np.zeros(10)))
-        self.register_buffer("init_cam", mean(mean_cam, [0.9, 0.0, 0.0]))
-
-    def _make_layer(self, planes: int, blocks: int, stride: int):
-        downsample = nn.Sequential(
-            nn.Conv2d(self.inplanes, planes * 4, 1, stride=stride, bias=False),
-            _gn(planes * 4))
-        mods = [Bottleneck(self.inplanes, planes, stride, downsample)]
-        self.inplanes = planes * 4
-        mods += [Bottleneck(self.inplanes, planes) for _ in range(1, blocks)]
-        return nn.Sequential(*mods)
+        _register_mean_params(self, mean_pose, mean_shape, mean_cam)
 
     def forward(self, x: torch.Tensor):
         """x: (B, 3, H, W), ImageNet-normalized."""
@@ -166,22 +183,25 @@ class HMR(nn.Module):
         return rotmat, pred_shape, pred_cam, tuple(features)
 
 
-def init_weights_(model: HMR, generator: torch.Generator) -> HMR:
-    """Seeded initialization: convs normal(0, sqrt(2 / (kh*kw*out))), the
-    decoder heads xavier-uniform with gain 0.01, GroupNorm (1, 0), and
-    fc1/fc2 keep PyTorch's default Linear scheme drawn from ``generator``."""
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded initialization of ``HMR`` or ``HMRISO``: convs normal(0,
+    sqrt(2 / (kh*kw*out))), the decoder heads xavier-uniform with gain
+    0.01, GroupNorm and BatchNorm (1, 0) (running statistics untouched),
+    and fc1/fc2 keep PyTorch's default Linear scheme drawn from
+    ``generator``."""
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, nn.Conv2d):
                 kh, kw = m.kernel_size
                 std = float(np.sqrt(2.0 / (kh * kw * m.out_channels)))
                 m.weight.normal_(0.0, std, generator=generator)
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, nn.Linear):
                 fan_in, fan_out = m.in_features, m.out_features
-                if name in ("decpose", "decshape", "deccam"):
+                if name.rsplit(".", 1)[-1] in ("decpose", "decshape",
+                                               "deccam"):
                     bound = 0.01 * float(np.sqrt(6.0 / (fan_in + fan_out)))
                     m.weight.uniform_(-bound, bound, generator=generator)
                     m.bias.zero_()
@@ -261,4 +281,115 @@ def params_from_jax(flax_params: dict[str, Any]) -> dict[str, torch.Tensor]:
     for name in ("fc1", "fc2", "decpose", "decshape", "deccam"):
         sd[f"{name}.weight"] = t(np.asarray(flax_params[name]["kernel"]).T)
         sd[f"{name}.bias"] = t(flax_params[name]["bias"])
+    return sd
+
+
+class _RegressorHead(nn.Module):
+    """One HMRISO head: fc1 -> fc2 -> residual pose/shape/cam decoders,
+    iterated from the mean parameters (no dropout)."""
+
+    def __init__(self, feat: int, regressor_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(feat + NPOSE + 13, regressor_dim)
+        self.fc2 = nn.Linear(regressor_dim, regressor_dim)
+        self.decpose = nn.Linear(regressor_dim, NPOSE)
+        self.decshape = nn.Linear(regressor_dim, 10)
+        self.deccam = nn.Linear(regressor_dim, 3)
+
+    def forward(self, xf, pose, shape, cam, n_iter: int):
+        for _ in range(n_iter):
+            xc = self.fc2(self.fc1(torch.cat([xf, pose, shape, cam], dim=1)))
+            pose = self.decpose(xc) + pose
+            shape = self.decshape(xc) + shape
+            cam = self.deccam(xc) + cam
+        B = xf.shape[0]
+        return rot6d_to_rotmat(pose).reshape(B, 24, 3, 3), shape, cam
+
+
+class HMRISO(nn.Module):
+    """Dual-head HMR (counterpart of ``dynaboa_tpu.models.hmr.HMRISO``): a
+    BatchNorm ResNet-50 backbone, meant to run in ``eval()`` on its running
+    statistics, a spatial-mean pooled feature, and two regressor heads,
+    ``fsl`` (fully supervised) and ``ssl`` (self-supervised).
+
+    ``forward(x, n_iter=None)`` takes NCHW images and returns ``(fsl
+    rotmat, fsl shape, fsl cam, ssl rotmat, ssl shape, ssl cam)``.
+    """
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 regressor_dim: int = 1024, n_iter: int = 3,
+                 mean_pose=None, mean_shape=None, mean_cam=None):
+        super().__init__()
+        self.layers_cfg = tuple(layers)
+        self.n_iter = n_iter
+        w = width
+        self.conv1 = nn.Conv2d(3, w, 7, stride=2, padding=3, bias=False)
+        self.bn1 = _bn(w)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.inplanes = w
+        self.layer1 = _make_layer(self, w, layers[0], 1, _bn)
+        self.layer2 = _make_layer(self, 2 * w, layers[1], 2, _bn)
+        self.layer3 = _make_layer(self, 4 * w, layers[2], 2, _bn)
+        self.layer4 = _make_layer(self, 8 * w, layers[3], 2, _bn)
+        feat = 8 * w * Bottleneck.expansion
+        self.fsl = _RegressorHead(feat, regressor_dim)
+        self.ssl = _RegressorHead(feat, regressor_dim)
+        _register_mean_params(self, mean_pose, mean_shape, mean_cam)
+
+    def forward(self, x: torch.Tensor, n_iter: int | None = None):
+        """x: (B, 3, H, W), ImageNet-normalized."""
+        n_iter = self.n_iter if n_iter is None else n_iter
+        B = x.shape[0]
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+        xf = x.mean(dim=(2, 3))
+        init = (self.init_pose.expand(B, -1), self.init_shape.expand(B, -1),
+                self.init_cam.expand(B, -1))
+        return (*self.fsl(xf, *init, n_iter), *self.ssl(xf, *init, n_iter))
+
+
+def iso_params_from_jax(variables: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's HMRISO variables (``params`` and ``batch_stats``,
+    flat names such as ``layer2_0_down_conv`` and ``fsl_fc1``) -> this
+    module's state_dict entries: conv HWIO -> OIHW, Dense (in, out) ->
+    (out, in), BatchNorm ``scale``/``bias``/``mean``/``var`` ->
+    ``weight``/``bias``/``running_mean``/``running_var``.  The mean
+    parameters and ``num_batches_tracked`` are not among them (load with
+    ``strict=False``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32))
+
+    def conv(src, dst):
+        sd[f"{dst}.weight"] = t(np.transpose(np.asarray(
+            params[src]["kernel"]), (3, 2, 0, 1)))
+
+    def bn(src, dst):
+        sd[f"{dst}.weight"] = t(params[src]["scale"])
+        sd[f"{dst}.bias"] = t(params[src]["bias"])
+        sd[f"{dst}.running_mean"] = t(stats[src]["mean"])
+        sd[f"{dst}.running_var"] = t(stats[src]["var"])
+
+    conv("conv1", "conv1")
+    bn("bn1", "bn1")
+    for key in params:
+        parts = key.split("_")
+        if not (parts[0].startswith("layer") and parts[-1] == "conv1"):
+            continue
+        src, dst = "_".join(parts[:2]), f"{parts[0]}.{parts[1]}"
+        for i in (1, 2, 3):
+            conv(f"{src}_conv{i}", f"{dst}.conv{i}")
+            bn(f"{src}_bn{i}", f"{dst}.bn{i}")
+        if f"{src}_down_conv" in params:
+            conv(f"{src}_down_conv", f"{dst}.downsample.0")
+            bn(f"{src}_down_bn", f"{dst}.downsample.1")
+    for head in ("fsl", "ssl"):
+        for name in ("fc1", "fc2", "decpose", "decshape", "deccam"):
+            src = params[f"{head}_{name}"]
+            sd[f"{head}.{name}.weight"] = t(np.asarray(src["kernel"]).T)
+            sd[f"{head}.{name}.bias"] = t(src["bias"])
     return sd

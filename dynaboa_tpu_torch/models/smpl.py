@@ -145,6 +145,13 @@ def spin_joints(model: SMPLModel, verts: torch.Tensor,
     return joints54[:, gather]
 
 
+def original_joints(model: SMPLModel, verts: torch.Tensor,
+                    kin_joints: torch.Tensor) -> torch.Tensor:
+    """The joint set before the SPIN remap: [24 posed kinematic + 21
+    selected vertices], (N, 45, 3), without the 9 extra regressed joints."""
+    return torch.cat([kin_joints, verts[:, model.vertex_joint_ids]], dim=1)
+
+
 def smpl_forward(model: SMPLModel, betas: torch.Tensor, pose: torch.Tensor,
                  pose2rot: bool = False, lbs_fn=None) -> SMPLOutput:
     """Full SMPL forward returning SPIN's 49-joint set.

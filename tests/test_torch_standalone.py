@@ -1,5 +1,6 @@
-"""The port stands alone: its own constants, config and GMM asset equal the
-JAX package's, and no source file of the port names the JAX package.
+"""The port stands alone: its own constants, config, GMM asset and copied
+sources equal the JAX package's, and no source file of the port names the
+JAX package.
 (``tests/test_torch_data.py::test_port_never_imports_jax`` imports every
 module of the port in a fresh interpreter and checks the same at run time.)"""
 
@@ -83,6 +84,39 @@ def test_native_sources_are_byte_copies(name):
     with open(os.path.join(PORT, "csrc", "native", name), "rb") as f, \
             open(os.path.join(REPO, "native", name), "rb") as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("port,jax_file", [
+    ("data/preprocess/cdf.py", "dynaboa_tpu/data/preprocess/cdf.py"),
+    ("tools/convert_smpl.py", "tools/convert_smpl.py")])
+def test_python_sources_are_byte_copies(port, jax_file):
+    with open(os.path.join(PORT, port), "rb") as f, \
+            open(os.path.join(REPO, jax_file), "rb") as g:
+        assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("name", ["human36m.py", "video.py"])
+def test_preprocess_copies_differ_only_in_imports(name):
+    """Copies whose imports of the JAX package point at the port."""
+    with open(os.path.join(PORT, "data", "preprocess", name)) as f, \
+            open(os.path.join(REPO, "dynaboa_tpu", "data", "preprocess",
+                              name)) as g:
+        port, jax_src = f.read(), g.read()
+    assert port != jax_src
+    assert port == jax_src.replace("from dynaboa_tpu.",
+                                   "from dynaboa_tpu_torch.")
+
+
+def test_kmeans_is_a_copy_of_the_jax_tool():
+    import inspect
+
+    from dynaboa_tpu_torch.tools import build_retrieval as tbr
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import build_retrieval as jbr
+    finally:
+        sys.path.remove(os.path.join(REPO, "tools"))
+    assert inspect.getsource(tbr.kmeans) == inspect.getsource(jbr.kmeans)
 
 
 def test_keypoint_tables_equal_jax():
