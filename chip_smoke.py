@@ -82,8 +82,23 @@ Phases, each of which raises (non-zero exit) on failure:
      synthetic crops through the full-width HMR, 8 crops' tap 5 card
      against CPU, crops/s.  Its numbers are printed as one JSON line
      {"offline": {...}} before the kernels line
+ 14. full-width parity against the JAX record
+     (dynaboa_tpu_torch/tools/fullscale_parity.py against
+     dynaboa_tpu_torch/assets/fullscale_jax.npz, recorded by the JAX
+     engine on the CPU): three arms of 12 frames at full width with
+     deterministic algorithms and TF32 off, the no-grad decodes through the
+     skinning kernel: every update taken with retrieval off and on (the
+     argmax moving between clusters), and the 3DPW defaults with the
+     dynamic gate live.  Step counts, losses, sims, metrics, vertices,
+     weights at the recorded coordinates and each leaf's update norm must
+     lie within their bounds (the gate arm's counts wherever its margin
+     rule applies) on every frame, or within 4x the reference's own
+     spread there (JAX from every weight one ulp up or down, recorded with
+     it) where that is larger; one line per arm prints each gap beside its
+     bound and, where the spread widened it, beside its allowance, and
+     {"parity": {...}} is printed before the kernels line
 
-Phases 3, 5-12 each set the kernel's launch count to 0 just before
+Phases 3, 5-12 and 14 each set the kernel's launch count to 0 just before
 they drive their path and read it just after; each must launch it.  The
 line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
@@ -127,8 +142,11 @@ PAR_PER_STREAM = 4
 EXP_FRAMES = 3
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"=== {name}", flush=True)
+    print(f"=== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def card_info() -> str:
@@ -1389,6 +1407,60 @@ def offline_phase(torch, dev, tmp):
     return offline
 
 
+def parity_phase(torch, dev):
+    """Phase 14: the full-width parity harness on the card against the
+    committed JAX record.  Returns the kernel's launches over the phase and
+    a summary: per arm its seconds, step counts, near-threshold frames and
+    every check's measured gap beside its bound."""
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+    from dynaboa_tpu_torch.tools import fullscale_parity as fp
+
+    record = fp.load_record()
+    meta = record["meta"]
+    klbs.skin.launches = 0
+    t0 = time.perf_counter()
+    run = fp.run_all(dev, meta["size"], meta["n_frames"],
+                     centers=record["centers"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = klbs.skin.launches
+    result = fp.compare(record, run)
+    for line in fp.report_lines(result):
+        print(line, flush=True)
+    failed = fp.failures(result)
+    if failed:
+        recipe = [f for f in failed if "/recipe/" in f]
+        raise RuntimeError(
+            f"full-width parity against the JAX record failed: {failed}"
+            + (" (a recipe fault: the inputs differ from the record's)"
+               if recipe else ""))
+    frames = meta["n_frames"] * len(run["arms"])
+    if launches < frames:
+        raise RuntimeError(f"skinning kernel launched {launches} times over "
+                           f"{frames} parity frames")
+    summary = {"seconds": seconds, "record": {
+        k: meta[k] for k in ("jax", "jaxlib", "backend", "recipe_version")}}
+    for arm, a in result["arms"].items():
+        summary[arm] = {
+            "seconds": run["meta"]["arms"][arm]["seconds"],
+            "steps": a["steps"], "jax_steps": a["jax_steps"],
+            "near_threshold": [(x["frame"], x["jax_steps"], x["port_steps"],
+                                x["min_margin"]) for x in a["near_threshold"]],
+            # measured, bound, the largest allowance, the worst share of
+            # the allowance, the frame the reference's spread widened it
+            "gaps": {c["field"] + (f" ({c['leaf']})" if c.get("leaf") else ""):
+                     [c["measured"], c["bound"], c["allowance"], c["share"],
+                      c.get("widened_from")]
+                     for c in a["checks"]}}
+    print(f"parity: {len(run['arms'])} arms x {meta['n_frames']} frames at "
+          f"{meta['size']} size in {seconds:.1f} s ("
+          + ", ".join(f"{arm} {summary[arm]['seconds']:.1f} s"
+                      for arm in run["arms"])
+          + f"); every check within its allowance; kernel launches "
+          f"{launches}", flush=True)
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -1448,6 +1520,8 @@ def main() -> int:
         launches_e, _ = experiments_phase(torch, dev)
         phase("13 offline preparation and fitting at full size")
         offline = offline_phase(torch, dev, tmp)
+        phase("14 full-width parity against the JAX record")
+        launches_f, parity = parity_phase(torch, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1469,11 +1543,13 @@ def main() -> int:
                              "resume": launches_r, "internet": launches_i,
                              "stream": launches_s, "save_res": launches_o,
                              "bf16": launches_b, "parallel": launches_p,
-                             "experiments": launches_e},
+                             "experiments": launches_e,
+                             "fullscale_parity": launches_f},
         "geometries": geometries,
     }]
     print(info)
     print(json.dumps({"offline": offline}))
+    print(json.dumps({"parity": parity}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

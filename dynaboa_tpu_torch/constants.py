@@ -1,7 +1,7 @@
 """Camera, image and SMPL constants and the SPIN 49-joint ordering.
 
-The port's own copy of the values it uses from ``dynaboa_tpu/constants.py``
-(the public constants of the SPIN/DynaBOA family of HMR models), so that no
+The port's own copy of ``dynaboa_tpu/constants.py`` (the public constants
+of the SPIN/DynaBOA family of HMR models), so that no
 module of the port imports the JAX package.  ``tests/test_torch_standalone.py``
 holds every name here equal to the JAX package's.
 """
@@ -62,9 +62,29 @@ JOINT_MAP = {
 SPIN_JOINT_GATHER = np.array([JOINT_MAP[n] for n in JOINT_NAMES],
                              dtype=np.int32)
 
-# H36M 17-joint -> the 14 evaluation joints.
+# Joint selectors: H36M 17-joint and the 24 GT joints -> 17 / 14.
 H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
 H36M_TO_J14 = H36M_TO_J17[:14]
+J24_TO_J17 = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 18, 14, 16, 17]
+J24_TO_J14 = J24_TO_J17[:14]
+
+# Left/right flip permutations.
+SMPL_JOINTS_FLIP_PERM = [
+    0, 2, 1, 3, 5, 4, 6, 8, 7, 9, 11, 10, 12, 14, 13, 15, 17, 16, 19, 18,
+    21, 20, 23, 22,
+]
+SMPL_POSE_FLIP_PERM = []
+for _i in SMPL_JOINTS_FLIP_PERM:
+    SMPL_POSE_FLIP_PERM.extend([3 * _i, 3 * _i + 1, 3 * _i + 2])
+J24_FLIP_PERM = [
+    5, 4, 3, 2, 1, 0, 11, 10, 9, 8, 7, 6, 12, 13, 14, 15, 16, 17, 18, 19,
+    21, 20, 23, 22,
+]
+J49_FLIP_PERM = (
+    [0, 1, 5, 6, 7, 2, 3, 4, 8, 12, 13, 14, 9, 10, 11, 16, 15, 18, 17,
+     22, 23, 24, 19, 20, 21]
+    + [25 + i for i in J24_FLIP_PERM]
+)
 
 # SMPL mesh topology.
 NUM_VERTICES = 6890
@@ -99,4 +119,7 @@ VERTEX_JOINT_IDS = np.array([
     6133,   # right pinky tip
 ], dtype=np.int32)
 
-NUM_EXTRA_JOINTS = 9     # J_regressor_extra
+NUM_SELECTED_JOINTS = NUM_JOINTS + len(VERTEX_JOINT_IDS)  # 45
+NUM_EXTRA_JOINTS = 9                                      # J_regressor_extra
+NUM_SMPL_SPACE_JOINTS = NUM_SELECTED_JOINTS + NUM_EXTRA_JOINTS  # 54
+NUM_SPIN_JOINTS = 49

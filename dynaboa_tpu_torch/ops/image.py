@@ -224,3 +224,70 @@ def fused_crop_resize_normalize(image: torch.Tensor, center: torch.Tensor,
     std = torch.as_tensor(constants.IMG_NORM_STD, dtype=torch.float32,
                           device=dev)
     return (out - mean) / std
+
+
+def uncrop_bounds(center, scale, crop_res, orig_shape):
+    """Source-image placement of a crop (for overlay rendering)."""
+    ul, br = crop_bounds(center, scale, crop_res)
+    return ul, br, orig_shape
+
+
+# -- augmentation helpers (host) ---------------------------------------------
+
+def rot_aa(aa: np.ndarray, rot: float) -> np.ndarray:
+    """Rotate an axis-angle global orientation by an in-plane image rotation
+    of ``rot`` degrees, through the port's rotation ops on the CPU."""
+    from dynaboa_tpu_torch.ops.rotations import batch_rodrigues, rotmat_to_aa
+
+    R = np.array([
+        [np.cos(np.deg2rad(-rot)), -np.sin(np.deg2rad(-rot)), 0],
+        [np.sin(np.deg2rad(-rot)), np.cos(np.deg2rad(-rot)), 0],
+        [0, 0, 1],
+    ])
+    per = batch_rodrigues(torch.as_tensor(aa, dtype=torch.float32)[None])
+    res = rotmat_to_aa(torch.as_tensor((R @ per[0].numpy())[None],
+                                       dtype=torch.float32))
+    return res[0].numpy().astype(aa.dtype)
+
+
+def flip_img(img: np.ndarray) -> np.ndarray:
+    """Horizontal image flip."""
+    return np.fliplr(img)
+
+
+def flip_kp(kp: np.ndarray) -> np.ndarray:
+    """Flip keypoints with the left/right permutation of the 24- or
+    49-joint layout."""
+    if len(kp) == 24:
+        perm = constants.J24_FLIP_PERM
+    elif len(kp) == 49:
+        perm = constants.J49_FLIP_PERM
+    else:
+        raise ValueError(f"no flip permutation for {len(kp)} joints")
+    kp = kp[perm].copy()
+    kp[:, 0] = -kp[:, 0]
+    return kp
+
+
+def flip_pose(pose: np.ndarray) -> np.ndarray:
+    """Flip SMPL axis-angle parameters."""
+    pose = pose[constants.SMPL_POSE_FLIP_PERM].copy()
+    pose[1::3] = -pose[1::3]
+    pose[2::3] = -pose[2::3]
+    return pose
+
+
+def uncrop(img: np.ndarray, center, scale, orig_shape) -> np.ndarray:
+    """Place a crop back into original-image coordinates."""
+    res = img.shape[:2]
+    ul, br = crop_bounds(center, scale, res)
+    crop_shape = [br[1] - ul[1], br[0] - ul[0]]
+    new_img = np.zeros(orig_shape, dtype=np.uint8)
+    new_x = max(0, -ul[0]), min(br[0], orig_shape[1]) - ul[0]
+    new_y = max(0, -ul[1]), min(br[1], orig_shape[0]) - ul[1]
+    old_x = max(0, ul[0]), min(orig_shape[1], br[0])
+    old_y = max(0, ul[1]), min(orig_shape[0], br[1])
+    resized = resize_bilinear_np(img, crop_shape, anti_aliasing=False)
+    new_img[old_y[0]:old_y[1], old_x[0]:old_x[1]] = resized[
+        new_y[0]:new_y[1], new_x[0]:new_x[1]]
+    return new_img

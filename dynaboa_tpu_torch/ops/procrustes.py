@@ -4,6 +4,7 @@ cross-covariances, so PA-MPJPE stays on the device."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -48,3 +49,50 @@ def reconstruction_error(S1: torch.Tensor, S2: torch.Tensor) -> torch.Tensor:
     """(B,) mean joint error after Procrustes alignment."""
     S1_hat = similarity_transform(S1, S2)
     return torch.sqrt(torch.sum((S1_hat - S2) ** 2, dim=-1)).mean(dim=-1)
+
+
+def compute_error_accel(joints_gt: torch.Tensor,
+                        joints_pred: torch.Tensor) -> torch.Tensor:
+    """(N-2,) per-frame acceleration error of (N, J, 3) joint
+    trajectories."""
+    accel_gt = joints_gt[:-2] - 2 * joints_gt[1:-1] + joints_gt[2:]
+    accel_pred = joints_pred[:-2] - 2 * joints_pred[1:-1] + joints_pred[2:]
+    return torch.linalg.norm(accel_pred - accel_gt, dim=2).mean(dim=1)
+
+
+def compute_pck(s1: torch.Tensor, s2: torch.Tensor,
+                threshold: float) -> torch.Tensor:
+    """(B,) fraction of the (B, N, 3) joints within ``threshold``."""
+    return (torch.linalg.norm(s1 - s2, dim=-1) < threshold).to(
+        s1.dtype).mean(dim=-1)
+
+
+def reconstruction_error_full(S1: torch.Tensor, S2: torch.Tensor,
+                              needpck: bool = False, needauc: bool = False,
+                              reduction: str = "mean"):
+    """Procrustes-aligned reconstruction error with optional PCK@150mm and
+    AUC over the 0..150 mm thresholds (31 of them, in metres).
+
+    Returns ``re`` or ``(re, pck)`` / ``(re, auc)`` / ``(re, pck, auc)``;
+    ``reduction`` is "mean", "sum" or anything else for the (B,) errors.
+    """
+    pck_150 = compute_pck(S1, S2, 0.15) if needpck else None
+    auc = None
+    if needauc:
+        thresholds = np.linspace(0, 150, 31)
+        auc = torch.stack([compute_pck(S1, S2, float(t) / 1000.0)
+                           for t in thresholds]).mean()
+
+    re = reconstruction_error(S1, S2)
+    if reduction == "mean":
+        re = re.mean()
+    elif reduction == "sum":
+        re = re.sum()
+
+    if needauc and needpck:
+        return re, pck_150, auc
+    if needauc:
+        return re, auc
+    if needpck:
+        return re, pck_150
+    return re
