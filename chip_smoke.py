@@ -97,9 +97,23 @@ Phases, each of which raises (non-zero exit) on failure:
      it) where that is larger; one line per arm prints each gap beside its
      bound and, where the spread widened it, beside its allowance, and
      {"parity": {...}} is printed before the kernels line
+ 15. the measuring and endurance drivers of dynaboa_tpu_torch/tools: (a)
+     the headline benchmark (bench.py) in-process at full width with
+     --full, every arm 3 times at reduced counts (16 frames per streaming
+     run and of the bf16 qualification, 4 per worst-case run, realistic-gate
+     run and curve point, 16 runner frames, 1 chunk, 4 window steps, 8
+     parallel frames): both JSON lines carry every key, finite, and the
+     kernel launches; (b) the soak's sequential arm at full width in bf16,
+     96 frames, a checkpoint every 24, the kill and resume at 48 past the
+     NaN frame's two resets, --bitexact: the resumed state equals the
+     straight run's leaf for leaf; (c) the soak's parallel arm on the tiny
+     network, 1,000 frames over 8 streams, its RSS bounds held; (d) one
+     cold-start child process and a 2-combination sweep of the benchmark
+     CLI on the tiny network.  {"drivers": {...}} is printed before the
+     kernels line
 
-Phases 3, 5-12 and 14 each set the kernel's launch count to 0 just before
-they drive their path and read it just after; each must launch it.  The
+Phases 3, 5-12, 14 and 15 each set the kernel's launch count to 0 just
+before they drive their path and read it just after; each must launch it.  The
 line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
 the script exits non-zero and prints no result.
@@ -1461,6 +1475,141 @@ def parity_phase(torch, dev):
     return launches, summary
 
 
+# -- phase 15: the measuring and endurance drivers ---------------------------
+
+# reduced counts: at 8 frames per worst-case run, realistic-gate run and
+# curve point and 24 runner frames the bench took 332 s of the phase on the
+# H100; the script must stay well inside its time limit on a slower card
+BENCH_ARGS = ("--full", "--repeats", "3", "--stream_frames", "16",
+              "--worst_frames", "4", "--realistic_frames", "4",
+              "--curve_frames", "4", "--runner_frames", "16", "--chunks", "1",
+              "--window_steps", "4", "--parallel_frames", "8")
+# bench.py:523-542 and :597-607, the JAX bench's keys
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "compute_dtype",
+              "streaming_fps", "streaming_fps_runs", "chunk_size",
+              "worst_case_streaming_fps", "worst_case_extra_steps",
+              "realistic_gate_fps", "fps_vs_extra_steps", "runner_steady_fps",
+              "runner_steady_fps_runs", "fp32_streaming_fps",
+              "bf16_traj_mpjpe_rel", "bf16_traj_mpjpe_rel_chaos_controls",
+              "bf16_traj_weight_drift_vs_adam_bound")
+BENCH_FULL_KEYS = ("chunked_fps", "windowed8_aggregate_fps",
+                   "parallel_1dev_fps", "worst_case_experiments_fps")
+SOAK_FRAMES, SOAK_EVERY = 96, 24
+SOAK_PAR_FRAMES, SOAK_PAR_STREAMS = 1000, 8
+
+
+def _finite(x) -> bool:
+    if isinstance(x, dict):
+        return all(_finite(v) for v in x.values())
+    if isinstance(x, list):
+        return all(_finite(v) for v in x)
+    return not isinstance(x, float) or math.isfinite(x)
+
+
+def drivers_phase(torch, tmp):
+    """Phase 15: the bench, the soak's two arms, a cold start and a sweep.
+    Returns the kernel's launches over the bench and over the soak, and a
+    summary."""
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+    from dynaboa_tpu_torch.tools import bench, bench_coldstart, soak, sweep
+
+    out, seconds = {}, {}
+
+    print("--- 15a bench --full", flush=True)
+    t0 = time.perf_counter()
+    klbs.skin.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = bench.main(["--device", "cuda", "--out",
+                          os.path.join(tmp, "bench.json"), *BENCH_ARGS])
+    torch.cuda.synchronize()
+    launches_bench = klbs.skin.launches
+    seconds["bench"] = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    if len(lines) != 2:
+        raise RuntimeError(f"bench printed {len(lines)} lines, expected 2")
+    missing = (set(BENCH_KEYS) | set(bench.PORT_KEYS)) - set(lines[0])
+    missing |= set(BENCH_FULL_KEYS) - set(lines[1])
+    if missing:
+        raise RuntimeError(f"bench lines lack {sorted(missing)}")
+    if not _finite(res):
+        raise RuntimeError(f"bench result not finite: {res}")
+    if res["backend"] != "cuda" or res["skin_kernel_launches"] <= 0 \
+            or launches_bench != res["skin_kernel_launches"]:
+        raise RuntimeError(f"bench on {res['backend']}, kernel launches "
+                           f"{res['skin_kernel_launches']} (counted "
+                           f"{launches_bench})")
+    out["bench"] = {k: res[k] for k in (
+        "value", "compute_dtype", "streaming_fps_runs", "fp32_streaming_fps",
+        "bf16_streaming_fps", "worst_case_streaming_fps",
+        "realistic_gate_fps", "fps_vs_extra_steps", "runner_steady_fps_runs",
+        "bf16_traj_mpjpe_rel", "bf16_traj_mpjpe_rel_chaos_controls",
+        "bf16_traj_weight_drift_vs_adam_bound",
+        "bf16_traj_nondeterministic_ops", *BENCH_FULL_KEYS, "runs",
+        "skin_kernel_launches")}
+    print(f"bench: flagship {res['compute_dtype']} {res['value']} frames/s "
+          f"(runs {res['streaming_fps_runs']}; fp32 "
+          f"{res['fp32_streaming_fps']}, bf16 {res['bf16_streaming_fps']} in "
+          f"the qualification); kernel launches {launches_bench}; "
+          f"{seconds['bench']:.1f} s", flush=True)
+
+    print("--- 15b soak, sequential, full width, --bitexact", flush=True)
+    t0 = time.perf_counter()
+    klbs.skin.launches = 0
+    seq = soak.main([
+        "sequential", "--device", "cuda", "--bitexact",
+        "--frames", str(SOAK_FRAMES), "--checkpoint_every", str(SOAK_EVERY),
+        "--rss_every", "8", "--log_every", "1000",
+        "--expdir", os.path.join(tmp, "soak"),
+        "--out", os.path.join(tmp, "soak.json")])
+    seconds["soak_sequential"] = time.perf_counter() - t0
+    if not (seq["bitexact_resume"]["exact"] and seq["auto_resets"] >= 1
+            and seq["every_frame_seen_once"]):
+        raise RuntimeError(f"sequential soak: {seq}")
+
+    print("--- 15c soak, parallel, tiny network", flush=True)
+    t0 = time.perf_counter()
+    par = soak.main([
+        "parallel", "--device", "cuda", "--tiny",
+        "--frames", str(SOAK_PAR_FRAMES), "--streams", str(SOAK_PAR_STREAMS),
+        "--out", os.path.join(tmp, "soak.json")])
+    torch.cuda.synchronize()
+    launches_soak = klbs.skin.launches
+    seconds["soak_parallel"] = time.perf_counter() - t0
+    if par["frames_run"] != SOAK_PAR_FRAMES:
+        raise RuntimeError(f"parallel soak: {par}")
+    if launches_soak == 0:
+        raise RuntimeError("the soak never launched the kernel")
+    out["soak"] = {"sequential_bitexact": seq, "parallel": par}
+
+    print("--- 15d cold start, sweep", flush=True)
+    t0 = time.perf_counter()
+    out["coldstart"] = bench_coldstart.main(["--runs", "1"])
+    seconds["coldstart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = sweep.main([
+        "--grid", "interval=2,5", "--base",
+        "--device cuda --tiny 1 --synthetic 4 --use_pallas_lbs 1",
+        "--out", os.path.join(tmp, "sweep")])
+    seconds["sweep"] = time.perf_counter() - t0
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != 2 or not all(math.isfinite(r["mpjpe"])
+                                 and r["frames"] == 4 for r in rows):
+        raise RuntimeError(f"sweep records: {rows}")
+    out["sweep"] = [{k: r[k] for k in ("combo", "mpjpe", "fps", "wall_s")}
+                    for r in rows]
+    out["seconds"] = seconds
+    print(f"soak: sequential exact {seq['bitexact_resume']['exact']}, "
+          f"{seq['auto_resets']} resets, steady {seq['fps_steady']} frames/s;"
+          f" parallel {par['frames_run']} frames at {par['aggregate_fps']} "
+          f"aggregate frames/s, RSS {par['rss_mb']}; kernel launches "
+          f"{launches_soak}; cold start {out['coldstart']['runs']}; "
+          f"seconds {seconds}", flush=True)
+    return launches_bench, launches_soak, out
+
+
 def main() -> int:
     import torch
 
@@ -1522,6 +1671,8 @@ def main() -> int:
         offline = offline_phase(torch, dev, tmp)
         phase("14 full-width parity against the JAX record")
         launches_f, parity = parity_phase(torch, dev)
+        phase("15 drivers: bench, soak, cold start, sweep")
+        launches_bd, launches_sk, drivers = drivers_phase(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1544,12 +1695,14 @@ def main() -> int:
                              "stream": launches_s, "save_res": launches_o,
                              "bf16": launches_b, "parallel": launches_p,
                              "experiments": launches_e,
-                             "fullscale_parity": launches_f},
+                             "fullscale_parity": launches_f,
+                             "bench": launches_bd, "soak": launches_sk},
         "geometries": geometries,
     }]
     print(info)
     print(json.dumps({"offline": offline}))
     print(json.dumps({"parity": parity}))
+    print(json.dumps({"drivers": drivers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
 """The port's offline tools against the JAX package's: the retrieval store
-builder (k-means, tap-5 features, the CLI on a joblib exemplar bank) and
-the SMPL pickle converter."""
+builder (k-means, tap-5 features, the CLI on a joblib exemplar bank), the
+SMPL pickle converter, and the cold-start timer and the flag-grid sweep
+over the benchmark CLI."""
+
+import json
 
 import os
 import pickle
@@ -14,14 +17,17 @@ import pytest
 import torch
 
 from dynaboa_tpu_torch.models import hmr as thmr
+from dynaboa_tpu_torch.tools import bench_coldstart as tcold
 from dynaboa_tpu_torch.tools import build_retrieval as tbr
 from dynaboa_tpu_torch.tools import convert_smpl as tconv
+from dynaboa_tpu_torch.tools import sweep as tsweep
 from tests import torch_port_fixtures as F
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import build_retrieval as jbr  # noqa: E402
 import convert_smpl as jconv  # noqa: E402
+import sweep as jsweep  # noqa: E402
 
 # test_torch_hmr.py's tap tolerance; measured worst tap-5 gap 4.9e-6 on 32^2
 # noise images and 5.5e-6 on 224^2 ones (features up to 5 in size)
@@ -140,3 +146,43 @@ def test_convert_smpl_matches_the_jax_tool(tmp_path):
     for k in j.files:
         assert t[k].dtype == j[k].dtype and t[k].tobytes() == j[k].tobytes()
     assert t["posedirs"].shape == (207, V * 3) and t["kintree_parents"][0] == -1
+
+
+def test_coldstart_child_reports_its_times():
+    res = tcold.main(["--device", "cpu", "--tiny", "1", "--runs", "1"])
+    assert res["backend"] == "cpu" and res["with_kernel_build"] is None
+    (run,) = res["runs"]
+    assert run["nvcc_s"] == 0.0        # the CPU takes the plain version
+    for k in ("build_s", "first_step_s", "process_wall_s"):
+        assert 0.0 < run[k] < 600.0, (k, run[k])
+    assert run["build_s"] + run["first_step_s"] < run["process_wall_s"]
+
+
+@pytest.mark.parametrize("specs", [
+    ["lr=1e-6,3e-6", "interval=2,5,7"],
+    ["optim_steps=3"],
+    ["a=1,2", "b=x", "c=3,4"],
+    ["cos_sim_threshold=-1,3.1e-4,1e-3"],
+])
+def test_parse_grid_equals_jax(specs):
+    assert tsweep.parse_grid(specs) == jsweep.parse_grid(specs)
+
+
+def test_parse_grid_refuses_a_bare_name():
+    for parse in (tsweep.parse_grid, jsweep.parse_grid):
+        with pytest.raises(ValueError, match="needs name=v1,v2"):
+            parse(["lr"])
+
+
+def test_sweep_writes_one_record_per_combination(tmp_path):
+    path = tsweep.main(["--grid", "interval=2,5", "--base",
+                        "--device cpu --tiny 1 --synthetic 2 --optim_steps 1",
+                        "--out", str(tmp_path)])
+    rows = [json.loads(x) for x in open(path)]
+    assert [r["combo"] for r in rows] == [{"interval": "2"},
+                                          {"interval": "5"}]
+    for r in rows:
+        assert (tmp_path / r["expname"] / "res.txt").exists()
+        assert r["frames"] == 2 and len(r["optim_steps"]) == 2
+        for k in ("mpjpe", "pampjpe", "pve", "fps", "wall_s"):
+            assert np.isfinite(r[k]), k

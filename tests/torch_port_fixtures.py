@@ -88,11 +88,11 @@ def torch_smpls():
         J_regressor_h36m=torch.as_tensor(jreg_h36m()))
 
 
-def singleton_stores(n_clusters: int = 6):
+def singleton_stores(n_clusters: int = 6, img_res: int = IMG):
     """A store with one member per cluster (both packages' draws are then
     deterministic), built from the first exemplars of the synthetic store."""
-    jbase = jeng.synthetic_store(seed=6, img_res=IMG, feat_dim=XF)
-    tbase = t_store(6, CPU, img_res=IMG, feat_dim=XF)
+    jbase = jeng.synthetic_store(seed=6, img_res=img_res, feat_dim=XF)
+    tbase = t_store(6, CPU, img_res=img_res, feat_dim=XF)
     centers = np.random.default_rng(21).normal(
         size=(n_clusters, XF)).astype(np.float32)
     members = [[i] for i in range(n_clusters)]
