@@ -111,8 +111,19 @@ Phases, each of which raises (non-zero exit) on failure:
      cold-start child process and a 2-combination sweep of the benchmark
      CLI on the tiny network.  {"drivers": {...}} is printed before the
      kernels line
+ 16. the attribution and app drivers of dynaboa_tpu_torch/tools at full
+     width: (a) profile_update_floor in fp32 and in bf16 at 8 iterations
+     per arm, the kernel on: every time, device time, kernel count and
+     FLOP count finite and positive (FlopCounterMode counts no FLOP in
+     adam_ema), and the decode_metrics arm launches the kernel; (b) the
+     worst-case ablation's base, no_teacher, fp32 and no_inner variants at
+     4 frames, one run each: every variant asked for ran; (c)
+     bench_stream_app over a 24-frame mp4v clip (fused preprocessing): the
+     steady frames/s parsed from the app's own line; (d) bench_raster, 20
+     frames per camera.  {"attribution": {...}} is printed before the
+     kernels line
 
-Phases 3, 5-12, 14 and 15 each set the kernel's launch count to 0 just
+Phases 3, 5-12 and 14-16 each set the kernel's launch count to 0 just
 before they drive their path and read it just after; each must launch it.  The
 line before the last is a JSON object describing every kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
@@ -1610,6 +1621,137 @@ def drivers_phase(torch, tmp):
     return launches_bench, launches_soak, out
 
 
+# -- phase 16: the attribution and app drivers --------------------------------
+
+FLOOR_ITERS = 8
+# the JAX tool's order; each variant builds a full-width system
+ABLATE_VARIANTS = ("base", "no_teacher", "fp32", "no_inner")
+ABLATE_FRAMES = 4
+STREAM_APP_FRAMES = 24
+RASTER_FRAMES = 20
+# the update floor's arms whose FlopCounterMode count must be positive
+# (matmuls and convolutions); the others may have none
+FLOP_ARMS = ("grad(batched fwd+bwd)", "fwd_batched", "fwd1(probe/teacher)")
+
+
+def _positive(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+
+def check_update_floor(res) -> None:
+    """Every time and count of ``profile_update_floor`` finite and positive;
+    the decode arm launched the kernel."""
+    bad = [k for k in ("full_step_ms_per_frame", "full_step_ms_per_update",
+                       "sum_ms", "device_sum_ms", "grad_minus_fwd_ms")
+           if not _positive(res[k])]
+    for label, arm in res["arms"].items():
+        for k in ("ms_per_iter", "device_ms_per_iter", "kernels_per_iter"):
+            if not _positive(arm[k]):
+                bad.append(f"{label}.{k}")
+        if not 0 <= arm["idle_share"] < 1:
+            bad.append(f"{label}.idle_share")
+        counted = arm["gflop_per_iter"] is not None
+        if (label in FLOP_ARMS or counted) and not (
+                _positive(arm["gflop_per_iter"]) and _positive(arm["sol_ms"])
+                and _positive(arm["sol_share"])):
+            bad.append(f"{label}.gflop_per_iter")
+    if bad or res["backend"] != "cuda":
+        raise RuntimeError(f"update floor ({res['dtype']}) on "
+                           f"{res['backend']}: not finite and positive: "
+                           f"{bad}")
+    if res["arms"]["decode_metrics"]["skin_kernel_launches"] <= 0:
+        raise RuntimeError("the update floor's decode_metrics arm never "
+                           "launched the skinning kernel")
+
+
+def attribution_phase(torch, tmp):
+    """Phase 16: the per-update attribution in fp32 and bf16, the worst-case
+    ablation, the stream-app timer and the rasterizer timer.  Returns the
+    kernel's launches over the first three and a summary."""
+    from dynaboa_tpu_torch.kernels import lbs as klbs
+    from dynaboa_tpu_torch.tools import (ablate_worstcase, bench_raster,
+                                         bench_stream_app,
+                                         profile_update_floor)
+
+    out, seconds, launches = {}, {}, {}
+
+    print("--- 16a profile_update_floor, fp32 and bf16", flush=True)
+    t0 = time.perf_counter()
+    klbs.skin.launches = 0
+    out["update_floor"] = {}
+    for dtype in ("float32", "bfloat16"):
+        res = profile_update_floor.main([
+            "--device", "cuda", "--dtype", dtype, "--use_pallas_lbs", "1",
+            "--iters", str(FLOOR_ITERS),
+            "--trace_dir", os.path.join(tmp, "update_floor")])
+        check_update_floor(res)
+        out["update_floor"][dtype] = res
+    torch.cuda.synchronize()
+    launches["update_floor"] = klbs.skin.launches
+    seconds["update_floor"] = time.perf_counter() - t0
+
+    print("--- 16b ablate_worstcase", flush=True)
+    t0 = time.perf_counter()
+    klbs.skin.launches = 0
+    res = ablate_worstcase.main([
+        "--device", "cuda", "--use_pallas_lbs", "1",
+        "--variants", ",".join(ABLATE_VARIANTS),
+        "--frames", str(ABLATE_FRAMES), "--repeats", "1"])
+    torch.cuda.synchronize()
+    launches["ablate"] = klbs.skin.launches
+    seconds["ablate"] = time.perf_counter() - t0
+    rows = {r["label"]: r for r in res["variants"]}
+    if list(rows) != list(ABLATE_VARIANTS):
+        raise RuntimeError(f"ablation ran {list(rows)}, asked for "
+                           f"{list(ABLATE_VARIANTS)}")
+    bad = [f"{label}.{k}" for label, r in rows.items()
+           for k in ("ms_per_frame", "fps") if not _positive(r[k])]
+    bad += [k for k, v in res["ms_per_update_by_component"].items()
+            if not math.isfinite(v)]
+    if bad or res["backend"] != "cuda":
+        raise RuntimeError(f"ablation on {res['backend']}: {bad}")
+    out["ablate"] = res
+
+    print("--- 16c bench_stream_app", flush=True)
+    t0 = time.perf_counter()
+    klbs.skin.launches = 0
+    res = bench_stream_app.main([
+        "--device", "cuda", "--use_pallas_lbs", "1", "--fused", "1",
+        "--frames", str(STREAM_APP_FRAMES)])
+    torch.cuda.synchronize()
+    launches["stream_app"] = klbs.skin.launches
+    seconds["stream_app"] = time.perf_counter() - t0
+    if not (res["steady_parsed"] and _positive(res["fps"])):
+        raise RuntimeError(f"stream app: no steady frames/s from the app's "
+                           f"own line: {res}")
+    out["stream_app"] = res
+
+    print("--- 16d bench_raster", flush=True)
+    t0 = time.perf_counter()
+    res = bench_raster.main(["--frames", str(RASTER_FRAMES)])
+    seconds["raster"] = time.perf_counter() - t0
+    if res["backend"] != "native" or not all(
+            _positive(a["ms_per_frame"]) for a in res["arms"].values()):
+        raise RuntimeError(f"raster: {res}")
+    out["raster"] = res
+
+    for path, n in launches.items():
+        if n == 0:
+            raise RuntimeError(f"phase 16's {path} never launched the "
+                               "skinning kernel")
+    out["seconds"] = seconds
+    f32, b16 = (out["update_floor"][d] for d in ("float32", "bfloat16"))
+    print(f"attribution: ms/update (wall, device sum) fp32 "
+          f"{f32['full_step_ms_per_update']:.2f} "
+          f"({f32['device_sum_ms']:.2f}), bf16 "
+          f"{b16['full_step_ms_per_update']:.2f} "
+          f"({b16['device_sum_ms']:.2f}); ablation "
+          f"{out['ablate']['ms_per_update_by_component']}; stream app "
+          f"{out['stream_app']['fps']} frames/s; kernel launches "
+          f"{launches}; seconds {seconds}", flush=True)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -1673,6 +1815,9 @@ def main() -> int:
         launches_f, parity = parity_phase(torch, dev)
         phase("15 drivers: bench, soak, cold start, sweep")
         launches_bd, launches_sk, drivers = drivers_phase(torch, tmp)
+        phase("16 attribution and app drivers: update floor, ablation, "
+              "stream app, rasterizer")
+        launches_at, attribution = attribution_phase(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1696,13 +1841,15 @@ def main() -> int:
                              "bf16": launches_b, "parallel": launches_p,
                              "experiments": launches_e,
                              "fullscale_parity": launches_f,
-                             "bench": launches_bd, "soak": launches_sk},
+                             "bench": launches_bd, "soak": launches_sk,
+                             **launches_at},
         "geometries": geometries,
     }]
     print(info)
     print(json.dumps({"offline": offline}))
     print(json.dumps({"parity": parity}))
     print(json.dumps({"drivers": drivers}))
+    print(json.dumps({"attribution": attribution}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

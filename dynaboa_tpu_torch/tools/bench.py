@@ -149,7 +149,7 @@ def make_frames(n_distinct: int, device):
     ]
 
 
-def build(cfg, device, tiny: bool = False):
+def build(cfg, device, tiny: bool = False, compute_metrics: bool = True):
     """The system of ``cfg`` on ``device`` from the synthetic stand-ins
     where the licensed assets are absent; ``tiny`` is the CLIs' smoke-mode
     network and body model."""
@@ -157,7 +157,7 @@ def build(cfg, device, tiny: bool = False):
     from dynaboa_tpu_torch.apps.common import build_system
     from dynaboa_tpu_torch.config import Paths
 
-    return build_system(cfg, Paths(), device,
+    return build_system(cfg, Paths(), device, compute_metrics=compute_metrics,
                         **tiny_kwargs(argparse.Namespace(tiny=tiny)))
 
 

@@ -23,6 +23,13 @@ PORTED = {
     "tools/convert_smpl.py": "dynaboa_tpu_torch/tools/convert_smpl.py",
     "tools/fullscale_parity.py":
         "dynaboa_tpu_torch/tools/fullscale_parity.py",
+    "tools/profile_update_floor.py":
+        "dynaboa_tpu_torch/tools/profile_update_floor.py",
+    "tools/ablate_worstcase.py":
+        "dynaboa_tpu_torch/tools/ablate_worstcase.py",
+    "tools/bench_stream_app.py":
+        "dynaboa_tpu_torch/tools/bench_stream_app.py",
+    "tools/bench_raster.py": "dynaboa_tpu_torch/tools/bench_raster.py",
 }
 # (driver, name in its source) with no counterpart in the port, and why
 NAMES_NOT_PORTED = {
@@ -56,14 +63,7 @@ COUNTERPARTS = {
                             "kernel_ab_section")),
 }
 # queued, in the order they are to be ported
-QUEUED = {
-    "tools/profile_update_floor.py":
-        "per-update cost attribution of the step",
-    "tools/ablate_worstcase.py":
-        "worst-case ablation of the step's parts",
-    "tools/bench_stream_app.py": "the stream app's timer on a written clip",
-    "tools/bench_raster.py": "the native rasterizer's timer",
-}
+QUEUED: dict[str, str] = {}
 NOT_PORTED = {
     "tools/diag_leak.py":
         "diagnoses the JAX platform client's host memory",
