@@ -1,0 +1,9 @@
+"""``device.idle_share`` in the cells that bound the device's time per frame
+(``device_ms_per_frame``) in place of the rate: the same reading."""
+
+import os
+
+from perfbench.harness import found
+
+read = found.module("metrics", "device.idle_share", os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__))))).read
