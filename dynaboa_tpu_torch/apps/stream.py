@@ -51,6 +51,8 @@ import time
 import numpy as np
 import torch
 
+from dynaboa_tpu_torch.tracing import span
+
 ADAPTED_COLOR = (205 / 255, 129 / 255, 98 / 255)
 BASE_COLOR = (100 / 255, 100 / 255, 200 / 255)
 WARMUP_FRAMES = 3
@@ -243,8 +245,16 @@ def run(system, frames, provider, sink, fused: bool = False,
     counts, ``records`` emitted, ``resets``, ``steady_fps`` over
     ``steady_frames`` after the warmup (None when the stream is too short),
     ``main_ms`` per steady frame by phase (read / kp / prep / submit /
-    deliver), ``emit_ms`` per record by part (fetch / render / write) and
-    the devices of the adapted params.
+    deliver), ``emit_ms`` per record by part (fetch / render / write),
+    ``wait_ms["pipeline"]``, the mean time a steady frame's record waits
+    from the end of its own submit until the render takes it up, and the
+    devices of the adapted params.  A record's life from hand-in to sink
+    is so split into read, kp, prep, submit, the wait, fetch, render and
+    write.
+
+    Under ``torch.profiler`` the main loop's phases are the spans
+    ``stream.read``, ``stream.kp``, ``stream.prep``, ``stream.submit`` and
+    ``stream.deliver``; the render worker's parts have none.
     """
     from dynaboa_tpu_torch.engine.bilevel import Frame
     from dynaboa_tpu_torch.viz.renderer import (Renderer,
@@ -265,7 +275,8 @@ def run(system, frames, provider, sink, fused: bool = False,
     base_params = system.params if test_basemodel else None
 
     E = dict.fromkeys(EMIT_PARTS, 0.0)
-    counts = {"records": 0, "resets": 0}
+    counts = {"records": 0, "resets": 0, "waited": 0}
+    wait = {"pipeline": 0.0}
 
     def render_one(frame_bgr, bbox, verts, cam, color):
         if not (np.isfinite(verts).all() and np.isfinite(cam).all()):
@@ -289,6 +300,11 @@ def run(system, frames, provider, sink, fused: bool = False,
                 img = np.concatenate([img, frame_bgr], axis=1)
             E["render"] += time.perf_counter() - t0
         else:
+            if "submitted" in ctx:
+                # a steady frame's record: from the end of its own submit
+                # until the render takes it up
+                wait["pipeline"] += t0 - ctx["submitted"]
+                counts["waited"] += 1
             h = out.result()
             E["fetch"] += time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -359,30 +375,42 @@ def run(system, frames, provider, sink, fused: bool = False,
     try:
         while True:
             t0 = time.perf_counter()
-            frame_bgr = next(it, None)
+            with span("stream.read"):
+                frame_bgr = next(it, None)
             if frame_bgr is None:
                 break
             t1 = time.perf_counter()
-            kp2d = provider.estimate(frame_bgr)
+            with span("stream.kp"):
+                kp2d = provider.estimate(frame_bgr)
             t2 = time.perf_counter()
+            ctx = None
             if kp2d is None:
                 t3 = t2
-                done = pipeline.submit_passthrough({"frame_bgr": frame_bgr})
+                with span("stream.submit"):
+                    done = pipeline.submit_passthrough(
+                        {"frame_bgr": frame_bgr})
             else:
-                img, j2d49, bbox = keypoints_to_frame(
-                    frame_bgr[:, :, ::-1], kp2d, fused=fused, device=device)
-                image = (img if fused else
-                         torch.from_numpy(img).to(device))[None]
+                with span("stream.prep"):
+                    img, j2d49, bbox = keypoints_to_frame(
+                        frame_bgr[:, :, ::-1], kp2d, fused=fused,
+                        device=device)
+                    image = (img if fused else
+                             torch.from_numpy(img).to(device))[None]
                 t3 = time.perf_counter()
-                f = Frame(image=image,
-                          j2d=torch.from_numpy(j2d49).to(device)[None],
-                          pose=zeros72, betas=zeros10, gender=gender)
-                done = pipeline.submit(f, {"frame_bgr": frame_bgr,
-                                           "bbox": bbox})
+                ctx = {"frame_bgr": frame_bgr, "bbox": bbox}
+                with span("stream.submit"):
+                    f = Frame(image=image,
+                              j2d=torch.from_numpy(j2d49).to(device)[None],
+                              pose=zeros72, betas=zeros10, gender=gender)
+                    done = pipeline.submit(f, ctx)
                 n_adapted += 1
             t4 = time.perf_counter()
+            if ctx is not None and t_steady is not None:
+                # the record is still pending here, so no render has it yet
+                ctx["submitted"] = t4
             if done is not None:
-                ok_continue = deliver(done)
+                with span("stream.deliver"):
+                    ok_continue = deliver(done)
             t5 = time.perf_counter()
             if t_steady is not None:
                 for k, dt in zip(MAIN_PHASES, (t1 - t0, t2 - t1, t3 - t2,
@@ -423,6 +451,8 @@ def run(system, frames, provider, sink, fused: bool = False,
                        if n_steady else None),
         "main_ms": {k: 1e3 * v / max(n_steady, 1) for k, v in T.items()},
         "emit_ms": {k: 1e3 * v / ne for k, v in E.items()},
+        "wait_ms": {k: 1e3 * v / max(counts["waited"], 1)
+                    for k, v in wait.items()},
         "param_devices": sorted({str(p.device)
                                  for p in pipeline.state.params.values()}),
     }
@@ -537,6 +567,8 @@ def main(argv=None):
             f"{k}={v:.1f}" for k, v in summary["main_ms"].items()))
         print("emit ms/record: " + " ".join(
             f"{k}={v:.1f}" for k, v in summary["emit_ms"].items()))
+        print(f"pipeline wait ms/record: "
+              f"{summary['wait_ms']['pipeline']:.1f}")
     print(f"processed {summary['frames']} frames")
     return summary["frames"]
 

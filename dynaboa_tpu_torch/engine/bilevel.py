@@ -66,6 +66,7 @@ from dynaboa_tpu_torch.metrics.eval import (GenderedSMPL, evaluate_pred,
 from dynaboa_tpu_torch.models.hmr import HMR
 from dynaboa_tpu_torch.models.smpl import smpl_forward
 from dynaboa_tpu_torch.ops.camera import project_to_crop
+from dynaboa_tpu_torch.tracing import span
 
 
 class Frame(NamedTuple):
@@ -319,7 +320,19 @@ class BilevelEngine:
              extra_cap=None):
         """Adapt on one frame (or one window of B frames) and predict;
         returns ``(state, outputs)`` with ``state`` updated in place.
-        ``extra_cap`` bounds the extra updates below ``cfg.optim_steps``."""
+        ``extra_cap`` bounds the extra updates below ``cfg.optim_steps``.
+
+        Under ``torch.profiler`` the call is the span ``engine.step`` and
+        its phases are spans inside it (``tracing.span``): ``step.targets``,
+        ``step.init_forward``, ``step.retrieve``, ``step.grad.lower``,
+        ``step.inner_update``, ``step.grad.upper``, ``step.optim`` (Adam and
+        the teacher EMA), ``step.probe``, ``step.record``,
+        ``step.gate_read`` and ``step.decode``."""
+        with span("engine.step"):
+            return self._step(state, frame, cos_sim_threshold, extra_cap)
+
+    def _step(self, state: AdaptState, frame: Frame, cos_sim_threshold,
+              extra_cap):
         cfg = self.cfg
         thr = (cfg.cos_sim_threshold if cos_sim_threshold is None
                else float(cos_sim_threshold))
@@ -329,15 +342,16 @@ class BilevelEngine:
         # prediction-independent GT targets, shared by every evaluation
         eval_targets = None
         if self.compute_metrics:
-            with torch.no_grad():
+            with span("step.targets"), torch.no_grad():
                 eval_targets = gt_targets(self.smpls, frame.pose, frame.betas,
                                           frame.gender)
 
         if cfg.use_boa:
-            probe_image = self._probe_image(frame.image)
-            with torch.no_grad():
-                rotmat0, shape0, cam0, init_feats = self._forward(
-                    state.params, frame.image)
+            with span("step.init_forward"):
+                probe_image = self._probe_image(frame.image)
+                with torch.no_grad():
+                    rotmat0, shape0, cam0, init_feats = self._forward(
+                        state.params, frame.image)
 
             # inner step(s) on the clone; inner step 0 retrieves off the
             # pre-adaptation features
@@ -345,21 +359,25 @@ class BilevelEngine:
             lower_aux: dict = {}
             prev5 = init_feats[5][0]
             for i in range(cfg.inner_step):
-                bank = self._retrieve(prev5, state.rng)
-                ll, lfeats, lower_aux, g = self._value_and_grad(
-                    learner, frame, state, bank, "lower")
-                with torch.no_grad():
-                    learner = {k: p - cfg.fastlr * gg
-                               for (k, p), gg in zip(learner.items(), g)}
-                for p in learner.values():
-                    p.requires_grad_(True)
+                with span("step.retrieve"):
+                    bank = self._retrieve(prev5, state.rng)
+                with span("step.grad.lower"):
+                    ll, lfeats, lower_aux, g = self._value_and_grad(
+                        learner, frame, state, bank, "lower")
+                with span("step.inner_update"):
+                    with torch.no_grad():
+                        learner = {k: p - cfg.fastlr * gg
+                                   for (k, p), gg in zip(learner.items(), g)}
+                    for p in learner.values():
+                        p.requires_grad_(True)
                 lower_aux["loss"] = ll
                 prev5 = lfeats[5][0]
                 if cfg.record_lowerlevel:
-                    pred = self.predict(learner, frame.image)
-                    m = self._metrics(pred["verts"], eval_targets)
-                    outputs[f"lower_{i}_mpjpe"] = m["mpjpe"]
-                    outputs[f"lower_{i}_pampjpe"] = m["pampjpe"]
+                    with span("step.record"):
+                        pred = self.predict(learner, frame.image)
+                        m = self._metrics(pred["verts"], eval_targets)
+                        outputs[f"lower_{i}_mpjpe"] = m["mpjpe"]
+                        outputs[f"lower_{i}_pampjpe"] = m["pampjpe"]
             outputs["lower"] = lower_aux
 
             max_updates = 1 + (cfg.optim_steps if cfg.dynamic_boa else 0)
@@ -375,13 +393,20 @@ class BilevelEngine:
             if probe_image is frame.image:
                 pred_c = (rotmat0, shape0, cam0, init_feats)
             else:
-                with torch.no_grad():
+                with span("step.init_forward"), torch.no_grad():
                     pred_c = self._forward(state.params, probe_image)
             upper_aux: dict = {}
             sim = None
             n = 0
-            while n < max_updates and (
-                    n == 0 or (n <= cap and bool((1.0 - sim) > thr))):
+            while n < max_updates:
+                if n > 0:
+                    if n > cap:
+                        break
+                    # the gate: one host read of the cosine per update
+                    with span("step.gate_read"):
+                        go = bool((1.0 - sim) > thr)
+                    if not go:
+                        break
                 # fast_extra_updates: the extra updates leave out the
                 # exemplar row, so they draw none.  (The JAX engine zero-fills
                 # their missing labeled aux keys to give both lax.cond
@@ -389,30 +414,36 @@ class BilevelEngine:
                 fast = (n > 0 and cfg.fast_extra_updates
                         and cfg.upper_level_mixtrain)
                 # update 0 retrieves off the carried pre-inner features
-                bank = (None if fast
-                        else self._retrieve(pred_c[3][5][0], state.rng))
+                with span("step.retrieve"):
+                    bank = (None if fast
+                            else self._retrieve(pred_c[3][5][0], state.rng))
                 eval_params = learner if n == 0 else state.params
-                ul, _, aux, g = self._value_and_grad(
-                    eval_params, frame, state, bank, "upper",
-                    state.teacher_params, mixtrain=False if fast else None)
+                with span("step.grad.upper"):
+                    ul, _, aux, g = self._value_and_grad(
+                        eval_params, frame, state, bank, "upper",
+                        state.teacher_params, mixtrain=False if fast else None)
                 aux["loss"] = ul
                 losses[n] = ul
-                self._outer_update(g, state)
-                if cfg.use_meanteacher:
-                    self._ema_teacher(state)
+                with span("step.optim"):
+                    self._outer_update(g, state)
+                    if cfg.use_meanteacher:
+                        self._ema_teacher(state)
                 with torch.no_grad():
                     # post-update forward: the gate signal, and the final
                     # prediction when the loop stops here
-                    post = self._forward(state.params, probe_image)
-                    sim = feature_cosine_similarities(
-                        (pred_c[3][12],), (post[3][12],))[0]
-                    sims[n] = sim
+                    with span("step.probe"):
+                        post = self._forward(state.params, probe_image)
+                        sim = feature_cosine_similarities(
+                            (pred_c[3][12],), (post[3][12],))[0]
+                        sims[n] = sim
                     if recs is not None:
-                        _, verts_p = self._decode(post[0], post[1],
-                                                  no_grad=True)
-                        m = self._metrics(verts_p, eval_targets)
-                        for r, key in enumerate(("mpjpe", "pampjpe", "pve")):
-                            recs[r, n] = m[key]
+                        with span("step.record"):
+                            _, verts_p = self._decode(post[0], post[1],
+                                                      no_grad=True)
+                            m = self._metrics(verts_p, eval_targets)
+                            for r, key in enumerate(("mpjpe", "pampjpe",
+                                                     "pve")):
+                                recs[r, n] = m[key]
                 if n == 0:
                     upper_aux = aux
                 pred_c = post
@@ -428,18 +459,21 @@ class BilevelEngine:
                 outputs["per_step_pve"] = recs[2]
         else:
             # plain single-level online adaptation
-            with torch.no_grad():
+            with span("step.init_forward"), torch.no_grad():
                 init_feats0 = self._forward(state.params, frame.image)[3]
-            bank = self._retrieve(init_feats0[5][0], state.rng)
-            ll, _, lower_aux, g = self._value_and_grad(
-                state.params, frame, state, bank, "lower")
+            with span("step.retrieve"):
+                bank = self._retrieve(init_feats0[5][0], state.rng)
+            with span("step.grad.lower"):
+                ll, _, lower_aux, g = self._value_and_grad(
+                    state.params, frame, state, bank, "lower")
             lower_aux["loss"] = ll
             outputs["lower"] = lower_aux
-            self._outer_update(g, state)
-            if cfg.use_meanteacher:
-                self._ema_teacher(state)
+            with span("step.optim"):
+                self._outer_update(g, state)
+                if cfg.use_meanteacher:
+                    self._ema_teacher(state)
 
-        with torch.no_grad():
+        with span("step.decode"), torch.no_grad():
             if cfg.use_boa:
                 if probe_image is not frame.image:
                     # the probe's outputs are not the prediction

@@ -38,6 +38,7 @@ from dynaboa_tpu_torch.engine.bilevel import AdaptState, BilevelEngine, Frame
 from dynaboa_tpu_torch.engine.checkpoint import AsyncCheckpointer, load_state
 from dynaboa_tpu_torch.metrics.writer import ScalarWriter
 from dynaboa_tpu_torch.ops.image import fused_crop_resize_normalize
+from dynaboa_tpu_torch.tracing import span
 
 _PER_FRAME_KEYS = ("mpjpe", "pampjpe", "pve", "verts", "rotmat", "beta",
                    "cam")
@@ -138,7 +139,10 @@ class StreamRunner:
                  save_overlays: bool = False, img_root: str | None = None,
                  faces=None):
         """``profile_dir``: write a ``torch.profiler`` chrome trace of the
-        run there (``trace.json``).  ``save_overlays`` renders the predicted
+        run there (``trace.json``); each frame's phases are spans in it
+        (``runner.build_frame``, ``runner.chunk`` around the engine's
+        ``engine.step`` spans, ``runner.to_host``, ``runner.record``,
+        ``runner.checkpoint``).  ``save_overlays`` renders the predicted
         mesh over the original frame with the native rasterizer and writes
         ``image/Pred_<i>.png`` + ``mesh/Pred_<i>.obj`` (the reference's
         --save_res path, base_adaptor.py:429-443); it needs items that carry
@@ -222,15 +226,19 @@ class StreamRunner:
             nonlocal chunk_t0
             if chunk_t0 is None:
                 chunk_t0 = time.perf_counter()
-            pending.append((i0, build(), metas))
+            with span("runner.build_frame"):
+                frame = build()
+            pending.append((i0, frame, metas))
 
         def flush():
             nonlocal state, chunk_t0
             if not pending:
                 return
-            state, outs = self.engine.run_chunk(
-                state, [f for _, f, _ in pending])
-            outs = _to_host(outs)
+            with span("runner.chunk"):
+                state, outs = self.engine.run_chunk(
+                    state, [f for _, f, _ in pending])
+            with span("runner.to_host"):
+                outs = _to_host(outs)
             n_frames = sum(len(metas) for _, _, metas in pending)
             dt = (time.perf_counter() - chunk_t0) / n_frames
             chunk_t0 = None
@@ -242,7 +250,8 @@ class StreamRunner:
                         else split_window_out(out, len(metas)))
                 for j, o in enumerate(rows):
                     self.step_times.append(dt)
-                    self._record(i0 + j, o, metas[j])
+                    with span("runner.record"):
+                        self._record(i0 + j, o, metas[j])
                 if reset_template is not None and diverged_at is None \
                         and _diverged(out):
                     diverged_at = i0
@@ -278,7 +287,8 @@ class StreamRunner:
                 if self.checkpoint_every and \
                         (i + 1) % self.checkpoint_every == 0:
                     flush()
-                    self._checkpoint(state)
+                    with span("runner.checkpoint"):
+                        self._checkpoint(state)
                 if (i + 1) % self.log_every == 0 and self.mpjpe_all:
                     print(f"Step:{i}: MPJPE:{np.mean(self.mpjpe_all):.2f}, "
                           f"PAMPJPE:{np.mean(self.pampjpe_all):.2f}, "
@@ -306,7 +316,8 @@ class StreamRunner:
                       f"{window_size - T} masked pad frames")
             flush()
             if self.checkpoint_every and self.frames_seen:
-                self._final_checkpoint(state)
+                with span("runner.checkpoint"):
+                    self._final_checkpoint(state)
         finally:
             try:
                 self._ckpt.wait()
