@@ -247,10 +247,12 @@ def run(system, frames, provider, sink, fused: bool = False,
     ``main_ms`` per steady frame by phase (read / kp / prep / submit /
     deliver), ``emit_ms`` per record by part (fetch / render / write),
     ``wait_ms["pipeline"]``, the mean time a steady frame's record waits
-    from the end of its own submit until the render takes it up, and the
-    devices of the adapted params.  A record's life from hand-in to sink
-    is so split into read, kp, prep, submit, the wait, fetch, render and
-    write.
+    from the end of its own submit until the render takes it up,
+    ``graph_stats``, the call's gradient evaluations by how they ran
+    (``BilevelEngine.graph_stats``: eager, captured, replayed, and the
+    captures' ms), and the devices of the adapted params.  A record's life
+    from hand-in to sink is so split into read, kp, prep, submit, the wait,
+    fetch, render and write.
 
     Under ``torch.profiler`` the main loop's phases are the spans
     ``stream.read``, ``stream.kp``, ``stream.prep``, ``stream.submit`` and
@@ -275,6 +277,7 @@ def run(system, frames, provider, sink, fused: bool = False,
     base_params = system.params if test_basemodel else None
 
     E = dict.fromkeys(EMIT_PARTS, 0.0)
+    graphs0 = dict(engine.graph_stats)
     counts = {"records": 0, "resets": 0, "waited": 0}
     wait = {"pipeline": 0.0}
 
@@ -453,6 +456,8 @@ def run(system, frames, provider, sink, fused: bool = False,
         "emit_ms": {k: 1e3 * v / ne for k, v in E.items()},
         "wait_ms": {k: 1e3 * v / max(counts["waited"], 1)
                     for k, v in wait.items()},
+        "graph_stats": {k: v - graphs0[k]
+                        for k, v in engine.graph_stats.items()},
         "param_devices": sorted({str(p.device)
                                  for p in pipeline.state.params.values()}),
     }
@@ -569,6 +574,8 @@ def main(argv=None):
             f"{k}={v:.1f}" for k, v in summary["emit_ms"].items()))
         print(f"pipeline wait ms/record: "
               f"{summary['wait_ms']['pipeline']:.1f}")
+        print("gradient evaluations: " + " ".join(
+            f"{k}={v:.0f}" for k, v in summary["graph_stats"].items()))
     print(f"processed {summary['frames']} frames")
     return summary["frames"]
 

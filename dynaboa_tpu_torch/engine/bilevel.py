@@ -44,17 +44,23 @@ the final prediction.
 
 The state is updated in place: ``step`` returns the same ``AdaptState`` it
 was given.
+
+On a card each gradient evaluation (one per level and update) is a CUDA
+graph the state captures once per kind and shapes and replays after
+(``engine/graphs.py``); the CPU, bfloat16 and each kind's first call in an
+engine run eagerly.  ``graph_stats`` counts the evaluations by how they ran.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import torch
 from torch.func import functional_call
 
 from dynaboa_tpu_torch.config import AdaptConfig
+from dynaboa_tpu_torch.engine.graphs import GradGraphs, new_stats
 from dynaboa_tpu_torch.engine.retrieval import RetrievalStore, retrieve
 from dynaboa_tpu_torch.kernels.lbs import LBSKernelSMPL
 from dynaboa_tpu_torch.losses.adaptation import (
@@ -92,6 +98,17 @@ class AdaptState:
     hist_j2d: torch.Tensor      # (interval, B, 49, 3)
     step: int
     rng: torch.Generator
+    # the captured gradient evaluations, freed with the state
+    graphs: GradGraphs = field(default_factory=GradGraphs, init=False,
+                               repr=False, compare=False)
+
+
+class History(NamedTuple):
+    """What the motion loss reads of the history ring."""
+
+    image: torch.Tensor    # (B, H, W, 3), the slot of frame step - interval
+    j2d: torch.Tensor      # (B, 49, 3)
+    active: torch.Tensor   # 0-d: 1.0 once step > interval, else 0.0
 
 
 class BilevelEngine:
@@ -111,6 +128,15 @@ class BilevelEngine:
         self._record_dynamic = cfg.record_dynamic and compute_metrics
         self._lbs_kernel = (LBSKernelSMPL(smpls.neutral)
                             if cfg.use_pallas_lbs else None)
+        # the motion loss's on-switch as a device scalar, so that one graph
+        # serves before and after step > interval
+        self._motion_switch = (torch.zeros((), device=self.device),
+                               torch.ones((), device=self.device))
+        # autocast's cast cache cannot be captured: bfloat16 stays eager
+        self._graphed = (self.device.type == "cuda"
+                         and model.compute_dtype == "float32")
+        self._warm: set = set()
+        self.graph_stats = new_stats()
 
     # -- model wrappers ------------------------------------------------------
 
@@ -150,27 +176,29 @@ class BilevelEngine:
         t_s2d = project_to_crop(t_cam, t_s3d)["normed"]
         return (t_rotmat, t_shape, t_s2d, t_s3d)
 
+    def _history(self, state: AdaptState) -> History:
+        slot = state.step % self.cfg.interval
+        return History(state.hist_images[slot], state.hist_j2d[slot],
+                       self._motion_switch[int(state.step
+                                               > self.cfg.interval)])
+
     def _partial_level(self, params, frame: Frame, state: AdaptState, bank,
-                       level: str, mixtrain=None):
+                       level: str, mixtrain=None, hist: History | None = None):
         """Lower/upper loss without the teacher term: the frame, history and
         exemplar rows in one batched forward.  ``mixtrain=False`` drops the
-        exemplar row (``fast_extra_updates``)."""
+        exemplar row (``fast_extra_updates``); ``hist`` stands for the
+        state's ring when given."""
         cfg = self.cfg
         use_frame = (cfg.use_frame_losses_lower if level == "lower"
                      else cfg.use_frame_losses_upper)
-        use_temporal = (cfg.use_temporal_losses_lower if level == "lower"
-                        else cfg.use_temporal_losses_upper)
-        use_mixtrain = (cfg.lower_level_mixtrain if level == "lower"
-                        else cfg.upper_level_mixtrain)
-        if mixtrain is not None:
-            use_mixtrain = mixtrain
-        use_motion = use_temporal and cfg.use_motion
+        use_motion, use_mixtrain, _ = self._uses(level, mixtrain)
 
         B = frame.image.shape[0]
         imgs = [frame.image]
-        slot = state.step % cfg.interval
         if use_motion:
-            imgs.append(state.hist_images[slot])
+            if hist is None:
+                hist = self._history(state)
+            imgs.append(hist.image)
         n_ex = 0
         if use_mixtrain:
             imgs.append(bank.images)
@@ -203,12 +231,10 @@ class BilevelEngine:
             # always computed, masked until step > interval
             ksl = (slice(None, 25) if cfg.keypoint_source == "openpose"
                    else slice(25, None))
-            hist_j2d = state.hist_j2d[slot]
             ml = motion_loss(s2d[fr][:, ksl], frame.j2d[:, ksl],
-                             s2d[hi][:, ksl], hist_j2d[:, ksl], frame.mask)
-            active = float(state.step > cfg.interval)
-            loss = loss + ml * active * cfg.motionloss_weight
-            aux["motion_loss"] = ml * active
+                             s2d[hi][:, ksl], hist.j2d[:, ksl], frame.mask)
+            loss = loss + ml * hist.active * cfg.motionloss_weight
+            aux["motion_loss"] = ml * hist.active
         if use_mixtrain:
             ll, lparts = labeled_loss(
                 rotmat[ex], shape[ex], s2d[ex], s3d[ex],
@@ -220,10 +246,10 @@ class BilevelEngine:
         return loss, touts, feats, aux
 
     def _level_loss(self, params, frame, state, bank, level,
-                    teacher_params=None, mixtrain=None):
+                    teacher_params=None, mixtrain=None, hist=None):
         """Full loss at one level: partial terms + teacher distillation."""
-        loss, touts, feats, aux = self._partial_level(params, frame, state,
-                                                      bank, level, mixtrain)
+        loss, touts, feats, aux = self._partial_level(
+            params, frame, state, bank, level, mixtrain, hist)
         if self._teacher_active(level):
             t_out = self._teacher_outs(
                 state.teacher_params if teacher_params is None
@@ -235,12 +261,61 @@ class BilevelEngine:
         return loss, feats, aux
 
     def _value_and_grad(self, params, frame, state, bank, level,
-                        teacher_params=None, mixtrain=None):
+                        teacher_params=None, mixtrain=None, hist=None):
         loss, feats, aux = self._level_loss(params, frame, state, bank, level,
-                                            teacher_params, mixtrain)
+                                            teacher_params, mixtrain, hist)
         grads = torch.autograd.grad(loss, list(params.values()))
         return (loss.detach(), tuple(f.detach() for f in feats),
                 {k: v.detach() for k, v in aux.items()}, grads)
+
+    def _uses(self, level: str, mixtrain=None) -> tuple[bool, bool, bool]:
+        """Whether a level's loss reads the history ring, the exemplar rows
+        and the teacher."""
+        cfg = self.cfg
+        temporal = (cfg.use_temporal_losses_lower if level == "lower"
+                    else cfg.use_temporal_losses_upper)
+        if mixtrain is None:
+            mixtrain = (cfg.lower_level_mixtrain if level == "lower"
+                        else cfg.upper_level_mixtrain)
+        return (temporal and cfg.use_motion, bool(mixtrain),
+                self._teacher_active(level))
+
+    @staticmethod
+    def _grad_key(level: str, own_params: bool, frame: Frame,
+                  hist: History | None, bank) -> tuple:
+        """What a captured evaluation is specific to: the level, the
+        parameter set (the state's own or the inner-adapted clone), and the
+        shape and dtype of each input it reads; None marks one it does not
+        (no row mask, no history, no exemplar rows)."""
+        def spec(x):
+            return None if x is None else tuple(
+                None if t is None else (tuple(t.shape), t.dtype) for t in x)
+        return (level, own_params, spec(frame), spec(hist), spec(bank))
+
+    def _grad(self, state: AdaptState, params: dict, frame: Frame, bank,
+              level: str, mixtrain=None):
+        """``_value_and_grad`` at ``params`` (``state.params`` or the
+        inner-adapted clone) with the state's teacher and history; on a
+        card through ``state.graphs``.  The features and gradients it
+        returns are to be consumed before the next evaluation."""
+        use_hist, use_bank, use_teacher = self._uses(level, mixtrain)
+        teacher = state.teacher_params
+        # of the frame the gradient reads the image, keypoints and mask
+        inputs = (frame._replace(pose=None, betas=None, gender=None),
+                  self._history(state) if use_hist else None,
+                  bank if use_bank else None)
+
+        def evaluate(fr, hist, bk):
+            return self._value_and_grad(params, fr, None, bk, level, teacher,
+                                        mixtrain, hist)
+
+        if not self._graphed:
+            self.graph_stats["eager"] += 1
+            return evaluate(*inputs)
+        key = self._grad_key(level, params is state.params, *inputs)
+        bound = [*params.values(), *(teacher.values() if use_teacher else ())]
+        return state.graphs.evaluate(key, self._warm, self.graph_stats,
+                                     evaluate, inputs, bound)
 
     def _retrieve(self, feat5, rng):
         cfg = self.cfg
@@ -327,7 +402,8 @@ class BilevelEngine:
         ``step.init_forward``, ``step.retrieve``, ``step.grad.lower``,
         ``step.inner_update``, ``step.grad.upper``, ``step.optim`` (Adam and
         the teacher EMA), ``step.probe``, ``step.record``,
-        ``step.gate_read`` and ``step.decode``."""
+        ``step.gate_read`` and ``step.decode``; on a card a gradient span
+        holds ``step.grad.capture`` or ``step.grad.replay``."""
         with span("engine.step"):
             return self._step(state, frame, cos_sim_threshold, extra_cap)
 
@@ -362,13 +438,17 @@ class BilevelEngine:
                 with span("step.retrieve"):
                     bank = self._retrieve(prev5, state.rng)
                 with span("step.grad.lower"):
-                    ll, lfeats, lower_aux, g = self._value_and_grad(
-                        learner, frame, state, bank, "lower")
+                    ll, lfeats, lower_aux, g = self._grad(
+                        state, learner, frame, bank, "lower")
                 with span("step.inner_update"):
+                    # the clone params - fastlr * g, written over g: on a
+                    # card g is the lower graph's own output, so the clone
+                    # keeps one storage, which upper update 0's graph binds
                     with torch.no_grad():
-                        learner = {k: p - cfg.fastlr * gg
-                                   for (k, p), gg in zip(learner.items(), g)}
-                    for p in learner.values():
+                        torch._foreach_mul_(g, -cfg.fastlr)
+                        torch._foreach_add_(g, list(learner.values()))
+                    learner = dict(zip(learner, g))
+                    for p in g:
                         p.requires_grad_(True)
                 lower_aux["loss"] = ll
                 prev5 = lfeats[5][0]
@@ -419,9 +499,9 @@ class BilevelEngine:
                             else self._retrieve(pred_c[3][5][0], state.rng))
                 eval_params = learner if n == 0 else state.params
                 with span("step.grad.upper"):
-                    ul, _, aux, g = self._value_and_grad(
-                        eval_params, frame, state, bank, "upper",
-                        state.teacher_params, mixtrain=False if fast else None)
+                    ul, _, aux, g = self._grad(
+                        state, eval_params, frame, bank, "upper",
+                        mixtrain=False if fast else None)
                 aux["loss"] = ul
                 losses[n] = ul
                 with span("step.optim"):
@@ -464,8 +544,8 @@ class BilevelEngine:
             with span("step.retrieve"):
                 bank = self._retrieve(init_feats0[5][0], state.rng)
             with span("step.grad.lower"):
-                ll, _, lower_aux, g = self._value_and_grad(
-                    state.params, frame, state, bank, "lower")
+                ll, _, lower_aux, g = self._grad(
+                    state, state.params, frame, bank, "lower")
             lower_aux["loss"] = ll
             outputs["lower"] = lower_aux
             with span("step.optim"):

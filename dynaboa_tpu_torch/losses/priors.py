@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dynaboa_tpu_torch.ops.device_const import device_const
+
 POSE_DIM = 69
 _GMM_EPSILON = 1e-16
 
@@ -169,8 +171,9 @@ def angle_prior(pose: torch.Tensor, with_global_pose: bool = False
       (B, 4) per-joint penalties exp(pose * sign)^2.
     """
     off = 0 if with_global_pose else 3
-    idxs = [i - off for i in _ANGLE_IDXS]
-    signs = torch.tensor(_ANGLE_SIGNS, dtype=pose.dtype, device=pose.device)
+    idxs = device_const(tuple(i - off for i in _ANGLE_IDXS), torch.long,
+                        pose.device)
+    signs = device_const(_ANGLE_SIGNS, pose.dtype, pose.device)
     return torch.exp(pose[:, idxs] * signs) ** 2
 
 

@@ -9,13 +9,17 @@ has no backward pass.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from dynaboa_tpu_torch import constants
+from dynaboa_tpu_torch.ops.device_const import device_const
 from dynaboa_tpu_torch.ops.rotations import batch_rodrigues
+
+_SPIN_GATHER = tuple(int(i) for i in constants.SPIN_JOINT_GATHER)
 
 # SMPL kinematic tree (public topology).
 SMPL_PARENTS = (
@@ -45,17 +49,19 @@ class SMPLOutput(NamedTuple):
     smpl_joints: torch.Tensor   # (N, 24, 3) posed kinematic joints
 
 
-def _depth_groups(parents: tuple) -> list[tuple[list[int], list[int]]]:
-    """Joints grouped by depth in the kinematic tree: [(ids, parent ids)]."""
+@functools.cache
+def _depth_groups(parents: tuple) -> tuple:
+    """Joints grouped by depth in the kinematic tree: ((ids, parent ids),
+    ...), tuples of ints."""
     K = len(parents)
     depth = [0] * K
     for k in range(1, K):
         depth[k] = depth[parents[k]] + 1
     groups = []
     for d in range(1, max(depth) + 1):
-        ids = [k for k in range(K) if depth[k] == d]
-        groups.append((ids, [parents[k] for k in ids]))
-    return groups
+        ids = tuple(k for k in range(K) if depth[k] == d)
+        groups.append((ids, tuple(parents[k] for k in ids)))
+    return tuple(groups)
 
 
 def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
@@ -72,17 +78,20 @@ def _rigid_transform_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
       posed_joints: (N, K, 3), rel_transforms: (N, K, 4, 4)
     """
     N, K = rot_mats.shape[0], rot_mats.shape[1]
+    dev = rot_mats.device
     rel_joints = joints - torch.cat(
-        [torch.zeros_like(joints[:, :1]), joints[:, list(parents[1:])]], dim=1)
+        [torch.zeros_like(joints[:, :1]),
+         joints[:, device_const(parents[1:], torch.long, dev)]], dim=1)
 
     top = torch.cat([rot_mats, rel_joints[..., None]], dim=-1)      # (N,K,3,4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(N, K, 1, 4)
+    bottom = device_const((0.0, 0.0, 0.0, 1.0), rot_mats.dtype,
+                          dev).expand(N, K, 1, 4)
     local = torch.cat([top, bottom], dim=-2)                         # (N,K,4,4)
 
     world = [local[:, 0]] + [None] * (K - 1)
     for ids, pids in _depth_groups(parents):
-        prod = torch.stack([world[p] for p in pids], dim=1) @ local[:, ids]
+        prod = (torch.stack([world[p] for p in pids], dim=1)
+                @ local[:, device_const(ids, torch.long, dev)])
         for j, k in enumerate(ids):
             world[k] = prod[:, j]
     world = torch.stack(world, dim=1)                                # (N,K,4,4)
@@ -140,9 +149,7 @@ def spin_joints(model: SMPLModel, verts: torch.Tensor,
     sel_verts = verts[:, model.vertex_joint_ids]                      # (N,21,3)
     extra = torch.einsum("jv,nvc->njc", model.J_regressor_extra, verts)
     joints54 = torch.cat([kin_joints, sel_verts, extra], dim=1)
-    gather = torch.as_tensor(constants.SPIN_JOINT_GATHER, dtype=torch.long,
-                             device=verts.device)
-    return joints54[:, gather]
+    return joints54[:, device_const(_SPIN_GATHER, torch.long, verts.device)]
 
 
 def original_joints(model: SMPLModel, verts: torch.Tensor,

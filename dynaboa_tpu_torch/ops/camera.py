@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from dynaboa_tpu_torch import constants
+from dynaboa_tpu_torch.ops.device_const import device_const
 
 
 def perspective_projection(
@@ -29,6 +30,9 @@ def perspective_projection(
     """
     pts = torch.einsum("bij,bkj->bki", rotation, points) + translation[:, None, :]
     projected = pts / pts[..., 2:3]
+    if isinstance(focal_length, (int, float)):
+        focal_length = device_const(float(focal_length), points.dtype,
+                                    points.device)
     f = torch.as_tensor(focal_length, dtype=points.dtype,
                         device=points.device).expand(pts.shape[:1])
     return projected[..., :2] * f[:, None, None] + camera_center[:, None, :]

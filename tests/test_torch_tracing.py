@@ -197,6 +197,20 @@ def test_stream_reports_the_pipeline_wait(system, synchronous):
     assert math.isfinite(wait) and wait > 0.0
 
 
+def test_stream_reports_its_gradient_evaluations(system):
+    """The summary counts the call's own gradient evaluations by how they
+    ran; on the CPU every one is eager."""
+    frames, kps = _frames_and_kps(5)
+    system.engine.graph_stats["eager"] += 100    # an earlier call's
+    summary = tstream.run(system, iter(frames), _Provider(kps),
+                          lambda img: None)
+    stats = summary["graph_stats"]
+    assert set(stats) == {"eager", "captures", "replays", "capture_ms"}
+    # a lower and at least one upper evaluation per adapted frame
+    assert 2 * summary["adapted"] <= stats["eager"] < 100
+    assert stats["captures"] == stats["replays"] == stats["capture_ms"] == 0
+
+
 def test_stream_main_loop_spans(system):
     n = 5
     frames, kps = _frames_and_kps(n)
