@@ -9,11 +9,16 @@ Per frame:
   3. outer (upper-level) Adam updates on the real params.  Update 0 takes
      its gradient at the inner-adapted clone, every later update at the real
      params; each update is followed by the teacher EMA and a post-update
-     forward, whose tap-12 cosine against the previous forward gates the
+     forward, whose gate-tap cosine against the previous forward gates the
      next update (at most ``1 + optim_steps``).  The gate reads the cosine on
      the host once per update.
   4. SMPL decode of the last forward + MPJPE / PA-MPJPE / PVE
   5. history-ring write
+
+The model names the taps the engine reads (``retrieval_tap``, the feature
+that picks the exemplars; ``gate_tap``, the signal whose cosine gates the
+updates) and the crop it projects at (``img_res``): HMR's are 5, 12 and 224
+(``models/hmr.py``), HMR 2.0's 1, 2 and 256 (``models/hmr2.py``).
 
 The current frame, the history frame and the retrieved exemplar run as one
 batch through the backbone.  Update 0 retrieves with the pre-inner features
@@ -70,6 +75,7 @@ from dynaboa_tpu_torch.losses.priors import GMMPrior
 from dynaboa_tpu_torch.metrics.eval import (GenderedSMPL, evaluate_pred,
                                             gt_targets)
 from dynaboa_tpu_torch.models.hmr import HMR
+from dynaboa_tpu_torch.models.hmr2 import HMR2
 from dynaboa_tpu_torch.models.smpl import smpl_forward
 from dynaboa_tpu_torch.ops.camera import project_to_crop
 from dynaboa_tpu_torch.tracing import span
@@ -112,7 +118,7 @@ class History(NamedTuple):
 
 
 class BilevelEngine:
-    def __init__(self, cfg: AdaptConfig, model: HMR, prior: GMMPrior,
+    def __init__(self, cfg: AdaptConfig, model: HMR | HMR2, prior: GMMPrior,
                  smpls: GenderedSMPL, store: RetrievalStore | None = None,
                  compute_metrics: bool = True):
         if cfg.mixtrain and store is None:
@@ -121,6 +127,9 @@ class BilevelEngine:
         # the reference adapts in eval mode: dropout off
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        self.img_res = model.img_res
+        self.retrieval_tap = model.retrieval_tap
+        self.gate_tap = model.gate_tap
         self.prior = prior
         self.smpls = smpls
         self.store = store
@@ -141,8 +150,8 @@ class BilevelEngine:
     # -- model wrappers ------------------------------------------------------
 
     def _forward(self, params: dict, image: torch.Tensor):
-        """NHWC image -> (rotmat, shape, cam, 15 taps); the NCHW view of an
-        NHWC tensor is channels_last, so no copy is made."""
+        """NHWC image -> (rotmat, shape, cam, the model's taps); the NCHW
+        view of an NHWC tensor is channels_last, so no copy is made."""
         return functional_call(self.model, params, (image.permute(0, 3, 1, 2),))
 
     def _decode(self, rotmat, shape, no_grad: bool = False):
@@ -158,7 +167,7 @@ class BilevelEngine:
         s2d, feats)."""
         rotmat, shape, cam, feats = self._forward(params, image)
         s3d, verts = self._decode(rotmat, shape, no_grad=True)
-        s2d = project_to_crop(cam, s3d)["normed"]
+        s2d = project_to_crop(cam, s3d, img_res=self.img_res)["normed"]
         return dict(rotmat=rotmat, shape=shape, cam=cam, s3d=s3d,
                     verts=verts, s2d=s2d, feats=feats)
 
@@ -173,7 +182,7 @@ class BilevelEngine:
     def _teacher_outs(self, teacher_params, frame: Frame):
         t_rotmat, t_shape, t_cam, _ = self._forward(teacher_params, frame.image)
         t_s3d, _ = self._decode(t_rotmat, t_shape)
-        t_s2d = project_to_crop(t_cam, t_s3d)["normed"]
+        t_s2d = project_to_crop(t_cam, t_s3d, img_res=self.img_res)["normed"]
         return (t_rotmat, t_shape, t_s2d, t_s3d)
 
     def _history(self, state: AdaptState) -> History:
@@ -207,7 +216,7 @@ class BilevelEngine:
 
         rotmat, shape, cam, feats_all = self._forward(params, x)
         s3d, _ = self._decode(rotmat, shape)
-        s2d = project_to_crop(cam, s3d)["normed"]
+        s2d = project_to_crop(cam, s3d, img_res=self.img_res)["normed"]
 
         fr = slice(0, B)
         hi = slice(B, 2 * B)
@@ -433,10 +442,11 @@ class BilevelEngine:
             # pre-adaptation features
             learner = state.params
             lower_aux: dict = {}
-            prev5 = init_feats[5][0]
+            rtap, gtap = self.retrieval_tap, self.gate_tap
+            feat_r = init_feats[rtap][0]
             for i in range(cfg.inner_step):
                 with span("step.retrieve"):
-                    bank = self._retrieve(prev5, state.rng)
+                    bank = self._retrieve(feat_r, state.rng)
                 with span("step.grad.lower"):
                     ll, lfeats, lower_aux, g = self._grad(
                         state, learner, frame, bank, "lower")
@@ -451,7 +461,7 @@ class BilevelEngine:
                     for p in g:
                         p.requires_grad_(True)
                 lower_aux["loss"] = ll
-                prev5 = lfeats[5][0]
+                feat_r = lfeats[rtap][0]
                 if cfg.record_lowerlevel:
                     with span("step.record"):
                         pred = self.predict(learner, frame.image)
@@ -496,7 +506,8 @@ class BilevelEngine:
                 # update 0 retrieves off the carried pre-inner features
                 with span("step.retrieve"):
                     bank = (None if fast
-                            else self._retrieve(pred_c[3][5][0], state.rng))
+                            else self._retrieve(pred_c[3][rtap][0],
+                                                state.rng))
                 eval_params = learner if n == 0 else state.params
                 with span("step.grad.upper"):
                     ul, _, aux, g = self._grad(
@@ -514,7 +525,7 @@ class BilevelEngine:
                     with span("step.probe"):
                         post = self._forward(state.params, probe_image)
                         sim = feature_cosine_similarities(
-                            (pred_c[3][12],), (post[3][12],))[0]
+                            (pred_c[3][gtap],), (post[3][gtap],))[0]
                         sims[n] = sim
                     if recs is not None:
                         with span("step.record"):
@@ -542,7 +553,8 @@ class BilevelEngine:
             with span("step.init_forward"), torch.no_grad():
                 init_feats0 = self._forward(state.params, frame.image)[3]
             with span("step.retrieve"):
-                bank = self._retrieve(init_feats0[5][0], state.rng)
+                bank = self._retrieve(init_feats0[self.retrieval_tap][0],
+                                      state.rng)
             with span("step.grad.lower"):
                 ll, _, lower_aux, g = self._grad(
                     state, state.params, frame, bank, "lower")
@@ -583,10 +595,13 @@ class BilevelEngine:
     # -- state ---------------------------------------------------------------
 
     def init_state(self, params: dict, batch_size: int = 1,
-                   img_res: int = 224) -> AdaptState:
+                   img_res: int | None = None) -> AdaptState:
         """Fresh adaptation state from a name -> tensor parameter dict (e.g.
-        ``dict(model.named_parameters())``); student and teacher are copies."""
+        ``dict(model.named_parameters())``); student and teacher are copies.
+        The history ring holds ``img_res`` square frames, by default the
+        model's crop."""
         cfg = self.cfg
+        img_res = self.img_res if img_res is None else img_res
         student = {k: v.detach().clone().to(self.device).requires_grad_(True)
                    for k, v in params.items()}
         teacher = {k: v.detach().clone().to(self.device)

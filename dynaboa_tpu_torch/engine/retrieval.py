@@ -1,6 +1,7 @@
 """Source-exemplar retrieval on the device (counterpart of
-``dynaboa_tpu/engine/retrieval.py``): the pooled feature of the current
-frame picks the nearest K-means centre by cosine, then a uniform draw
+``dynaboa_tpu/engine/retrieval.py``): the model's retrieval feature of the
+current frame (HMR's pooled feature, HMR 2.0's token mean) picks the
+nearest K-means centre by cosine, then a uniform draw
 without replacement picks ``sample_num`` members of that cluster.  The whole
 exemplar set stays on the device, so a draw needs no host sync."""
 
@@ -13,9 +14,10 @@ import torch
 
 
 class ExemplarBank(NamedTuple):
-    """Labeled source exemplars; images cropped to 224x224, NHWC."""
+    """Labeled source exemplars; images cropped to the model's square crop
+    (``img_res``: 224 for HMR, 256 for HMR 2.0), NHWC."""
 
-    images: torch.Tensor     # (M, 224, 224, 3)
+    images: torch.Tensor     # (M, img_res, img_res, 3)
     keypoints: torch.Tensor  # (M, 49, 3)
     pose: torch.Tensor       # (M, 72)
     betas: torch.Tensor      # (M, 10)

@@ -50,9 +50,11 @@ def item_meta(item: dict) -> dict:
     return {k: item[k] for k in _META_KEYS if k in item}
 
 
-def frame_from_item(item: dict, device, keypoint_source: str = "gt") -> Frame:
+def frame_from_item(item: dict, device, keypoint_source: str = "gt",
+                    img_res: int = constants.IMG_RES) -> Frame:
     """Lift a dataset item (no batch dim) into a Frame on ``device``.  Items
-    with ``raw_image`` are cropped, resized and normalized there."""
+    with ``raw_image`` are cropped there to their ``out_res``, by default
+    ``img_res``, resized and normalized."""
     j2d = item["op_j2d"] if keypoint_source == "openpose" else item["smpl_j2d"]
 
     def t(a):
@@ -65,7 +67,7 @@ def frame_from_item(item: dict, device, keypoint_source: str = "gt") -> Frame:
             torch.as_tensor(item["raw_image"]).to(device),
             torch.as_tensor(item["center"]).to(device),
             torch.as_tensor(item["scale"]).to(device),
-            out_res=int(item.get("out_res", constants.IMG_RES)))[None]
+            out_res=int(item.get("out_res", img_res)))[None]
     else:
         image = t(item["image"])
     return Frame(
@@ -75,12 +77,13 @@ def frame_from_item(item: dict, device, keypoint_source: str = "gt") -> Frame:
         mask=torch.ones((1,), dtype=torch.float32, device=device))
 
 
-def frame_from_window(items: list[dict], device,
-                      keypoint_source: str = "gt") -> Frame:
+def frame_from_window(items: list[dict], device, keypoint_source: str = "gt",
+                      img_res: int = constants.IMG_RES) -> Frame:
     """Stack W consecutive frames into one batched Frame (B = W).  The
     history ring then stores whole windows, so the motion loss pairs row i
     of window t with row i of window t - interval."""
-    frames = [frame_from_item(it, device, keypoint_source) for it in items]
+    frames = [frame_from_item(it, device, keypoint_source, img_res)
+              for it in items]
     return Frame(*[torch.cat([getattr(f, k) for f in frames])
                    for k in Frame._fields])
 
@@ -188,7 +191,7 @@ class StreamRunner:
         self._ckpt_submitted_frames = -1
 
     def reset_state(self, params, batch_size: int = 1,
-                    img_res: int = constants.IMG_RES) -> AdaptState:
+                    img_res: int | None = None) -> AdaptState:
         """Divergence remedy: a fresh state from ``params``."""
         return self.engine.init_state(params, batch_size=batch_size,
                                       img_res=img_res)
@@ -217,6 +220,7 @@ class StreamRunner:
 
         n_total = len(stream)
         device = self.engine.device
+        res = self.engine.img_res
         prof = self._start_profile(device)
         # (first index, frame, each real row's item_meta)
         pending: list[tuple[int, Frame, list[dict]]] = []
@@ -272,14 +276,14 @@ class StreamRunner:
                     break
                 if window_size == 1:
                     add(i, lambda: frame_from_item(item, device,
-                                                   keypoint_source),
+                                                   keypoint_source, res),
                         [item_meta(item)])
                 else:
                     win_items.append((i, item))
                     if len(win_items) == window_size:
                         items = [it for _, it in win_items]
                         add(win_items[0][0], lambda: frame_from_window(
-                            items, device, keypoint_source),
+                            items, device, keypoint_source, res),
                             [item_meta(it) for it in items])
                         win_items = []
                 if len(pending) >= chunk_size:
@@ -304,7 +308,7 @@ class StreamRunner:
                 def padded():
                     fr = frame_from_window(
                         items + [items[-1]] * (window_size - T), device,
-                        keypoint_source)
+                        keypoint_source, res)
                     mask = torch.zeros((window_size,), dtype=torch.float32,
                                        device=device)
                     mask[:T] = 1.0
@@ -439,7 +443,8 @@ class StreamRunner:
             sims = np.asarray(out["feat_sim"])
             self.feat_sims[i] = sims.tolist()
             scalars["feat_sim/cos_sim"] = float(sims.mean())
-            scalars["feat_sim/tap12"] = float(sims[12])
+            gate = self.engine.gate_tap
+            scalars[f"feat_sim/tap{gate}"] = float(sims[gate])
         if "per_step_sims" in out:
             nupd = int(out["optim_steps"]) + 1
             self.step_sims[i] = np.asarray(out["per_step_sims"])[:nupd].copy()
@@ -457,7 +462,7 @@ class StreamRunner:
             # translation; the raw crop-space cam rides along as 'cam_crop'
             cam = np.asarray(out["cam"])
             tz = (2.0 * constants.FOCAL_LENGTH
-                  / (constants.IMG_RES * cam[:, 0] + 1e-9))
+                  / (self.engine.img_res * cam[:, 0] + 1e-9))
             cam_t = np.stack([cam[:, 1], cam[:, 2], tz], axis=-1)
             np.savez(osp.join(self.exppath, "result", f"Pred_{i}.npz"),
                      verts=out["verts"], cam=cam_t, cam_crop=cam,

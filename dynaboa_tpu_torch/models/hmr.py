@@ -115,6 +115,13 @@ def _make_layer(net: nn.Module, planes: int, blocks: int, stride: int,
 
 
 class HMR(nn.Module):
+    # what the engine reads of the model: the crop it projects at (the
+    # pixels of the weak-perspective camera, whatever size the input has),
+    # the retrieval feature's tap and the update gate's tap
+    img_res = 224
+    retrieval_tap = 5
+    gate_tap = 12
+
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  regressor_dim: int = 1024, n_iter: int = 3,
                  mean_pose=None, mean_shape=None, mean_cam=None,

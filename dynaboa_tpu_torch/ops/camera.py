@@ -38,15 +38,18 @@ def perspective_projection(
     return projected[..., :2] * f[:, None, None] + camera_center[:, None, :]
 
 
-def weak_perspective_to_translation(cam: torch.Tensor,
-                                    eps: float = 1e-9) -> torch.Tensor:
-    """(s, tx, ty) -> [tx, ty, 2 * FOCAL_LENGTH / (IMG_RES * s + eps)]."""
-    tz = 2.0 * constants.FOCAL_LENGTH / (constants.IMG_RES * cam[:, 0] + eps)
+def weak_perspective_to_translation(cam: torch.Tensor, eps: float = 1e-9,
+                                    img_res: int = constants.IMG_RES
+                                    ) -> torch.Tensor:
+    """(s, tx, ty) -> [tx, ty, 2 * FOCAL_LENGTH / (img_res * s + eps)]."""
+    tz = 2.0 * constants.FOCAL_LENGTH / (img_res * cam[:, 0] + eps)
     return torch.stack([cam[:, 1], cam[:, 2], tz], dim=-1)
 
 
-def project_to_crop(cam: torch.Tensor, s3d: torch.Tensor, eps: float = 1e-9):
-    """Weak-perspective projection of 3D joints into the 224x224 crop.
+def project_to_crop(cam: torch.Tensor, s3d: torch.Tensor, eps: float = 1e-9,
+                    img_res: int = constants.IMG_RES):
+    """Weak-perspective projection of 3D joints into the square crop of
+    ``img_res`` pixels the model projects at (224 for HMR, 256 for HMR 2.0).
 
     Args:
       cam: (B, 3) as (s, tx, ty).
@@ -56,12 +59,12 @@ def project_to_crop(cam: torch.Tensor, s3d: torch.Tensor, eps: float = 1e-9):
       (B, N, 2) in [-1, 1].
     """
     batch = s3d.shape[0]
-    cam_t = weak_perspective_to_translation(cam, eps)
+    cam_t = weak_perspective_to_translation(cam, eps, img_res)
     eye = torch.eye(3, dtype=s3d.dtype, device=s3d.device).expand(batch, 3, 3)
     center = torch.zeros((batch, 2), dtype=s3d.dtype, device=s3d.device)
     s2d = perspective_projection(s3d, eye, cam_t, constants.FOCAL_LENGTH,
                                  center)
-    return {"ori": s2d, "normed": s2d / (constants.IMG_RES / 2.0)}
+    return {"ori": s2d, "normed": s2d / (img_res / 2.0)}
 
 
 def estimate_translation(S: torch.Tensor, joints_2d: torch.Tensor,
