@@ -5,9 +5,9 @@
 
 Phases, each of which raises (non-zero exit) on failure:
   0. the card: name and power limit from nvidia-smi
-  1. build the Hopper skinning kernel from dynaboa_tpu_torch/csrc with nvcc;
-     print ptxas' registers, shared memory and spills, and each tile's
-     dynamic shared memory and CTAs per SM
+  1. build the Hopper skinning and GroupNorm kernels from
+     dynaboa_tpu_torch/csrc with nvcc; print ptxas' registers, shared memory
+     and spills, and each tile's dynamic shared memory and CTAs per SM
   2. the kernel against its plain PyTorch version at full SMPL size
      (V = 6890), N = 1, 3 and 8, identity and random poses, and two launches
      bit-equal; times at N = 1 (the per-frame path) and N = 8 (the window
@@ -16,10 +16,17 @@ Phases, each of which raises (non-zero exit) on failure:
      pose-blend product alone), an empty kernel and a library call that only
      reads the stream, all under the same timing, and the kernel's grid
      geometries (vertices per CTA x warps), each checked and timed
+ 2b. the GroupNorm kernel (csrc/group_norm.cu) at the GroupNorm shapes of
+     one full-width HMR forward (taken by hooks, with each input's layout),
+     N = 1 and 3: its output against nnf.group_norm and the plain version;
+     times hot and cold beside the bound (x read once, y written once over
+     the HBM rate), the plain version and nnf.group_norm (library_ms), and
+     the 53 calls of one forward summed
   3. the main path: the port's 3DPW benchmark CLI, 8 synthetic frames of
      per-frame dynamic bilevel adaptation at full width (ResNet-50-GN,
      224^2, V = 6890) with the skinning kernel on; the kernel's launch count
-     over that run must reach the frame count
+     over that run must reach the frame count, the GroupNorm kernel's 53 a
+     frame
   4. the same CLI at a tiny size on the card and on the CPU from the same
      seed, every update taken: step counts, losses and metrics must agree
   5. the windowed path at full width: 20 frames in windows of 8 (the last
@@ -54,7 +61,8 @@ Phases, each of which raises (non-zero exit) on failure:
      against 4 * n_updates * lr, which must hold, and the L2 distance of
      the bf16 run's weights from the fp32 run's over the fp32 run's own
      distance from the start, which must lie in (0, 1]; whether bf16
-     qualifies by the JAX rule is printed
+     qualifies by the JAX rule is printed.  A failure here is reported
+     after the later phases have run, and still fails the script
  11. parallel streams at full width: --parallel_streams 2 through the
      benchmark CLI on 12 frames (res.txt, per-stream frames, launches); then
      run_parallel in-process at S = 1, 2, 4, 8 streams of 4 frames (round
@@ -126,13 +134,15 @@ Phases, each of which raises (non-zero exit) on failure:
 Phases 3, 5-12 and 14-16 each set the kernel's launch count to 0 just
 before they drive their path and read it just after; each must launch it.  The
 line before the last is a JSON object describing every kernel of the
-paths; the last line is {"ok": true, "device": {...}}.  Without a CUDA card
+paths; the last line is {"ok": true, "device": {...}}, printed only when
+every phase passed.  Without a CUDA card
 the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -143,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 N_FRAMES = 8
 WINDOW = 8
@@ -151,6 +162,7 @@ RESUME_W = 4
 RESUME_FRAMES, RESUME_STOP = 12, 8
 KERNEL_ATOL = 1e-5     # fp32, different summation order over 207 + 24 terms
 KERNEL_RTOL = 1e-5
+GN_TOL = 1e-6          # GroupNorm: fp32 sums in another order, a few ulp
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
 GEOMETRIES = ((32, 8), (32, 4), (64, 8))   # (vertices per CTA, warps per CTA)
@@ -368,12 +380,133 @@ def kernel_phase(torch, dev):
     return max_err, times, geometries
 
 
+def group_norm_shapes(torch, dev):
+    """The (C, H, W) of each of the 53 GroupNorm calls of one full-width HMR
+    forward on ``dev``, in order, with whether its input is contiguous,
+    from a forward of an NHWC image viewed as NCHW, as the engine feeds
+    it."""
+    from dynaboa_tpu_torch.models.hmr import HMR, GroupNorm32
+
+    model = HMR().to(dev)
+    calls = []
+
+    def hook(mod, args):
+        x = args[0]
+        calls.append((tuple(x.shape[1:]), x.is_contiguous()))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, GroupNorm32)]
+    with torch.no_grad():
+        model(torch.zeros((1, 224, 224, 3), device=dev).permute(0, 3, 1, 2))
+    for h in handles:
+        h.remove()
+    return calls
+
+
+def group_norm_phase(torch, dev):
+    """The GroupNorm kernel at the main path's shapes (N = 1 and 3) against
+    ATen's GroupNorm and the plain version: the gaps, then times hot and
+    cold beside the bound (x read once, y written once), the plain version
+    and ``nnf.group_norm`` (library_ms)."""
+    import torch.nn.functional as nnf
+
+    from dynaboa_tpu_torch.kernels import group_norm as kgn
+
+    calls = group_norm_shapes(torch, dev)
+    if len(calls) != 53:
+        raise RuntimeError(f"{len(calls)} GroupNorm calls in a forward")
+    count = {}
+    for chw, _ in calls:
+        count[chw] = count.get(chw, 0) + 1
+    print(f"GroupNorm inputs of one forward: {len(count)} shapes, "
+          f"{sum(not c for _, c in calls)} of 53 not contiguous; ATen on a "
+          f"channels_last input returns strides "
+          f"{nnf.group_norm(torch.zeros((1, 64, 8, 8), device=dev).to(memory_format=torch.channels_last), 4).stride()}",
+          flush=True)
+    scrub = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scrub.zero_()
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, worst = [], 0.0
+    with torch.no_grad():
+        for n in (1, 3):
+            for chw in count:
+                x = torch.randn((n, *chw), generator=g, device=dev) * 2 + 0.5
+                w = 1 + 0.5 * torch.randn((chw[0],), generator=g, device=dev)
+                b = 0.5 * torch.randn((chw[0],), generator=g, device=dev)
+                y = kgn.group_norm(x, 4, w, b)
+                ref = nnf.group_norm(x, 4, w, b)
+                plain = kgn.group_norm_plain(x, 4, w, b)[0]
+                gap = float((y - ref).abs().max() / ref.abs().max())
+                gap_p = float((y - plain).abs().max() / plain.abs().max())
+                if not max(gap, gap_p) <= GN_TOL:
+                    raise RuntimeError(f"group_norm N={n} {chw}: gap {gap} "
+                                       f"to ATen, {gap_p} to plain")
+                worst = max(worst, gap, gap_p)
+                nbytes = 8 * x.numel()
+                row = dict(n=n, chw=list(chw), calls=count[chw],
+                           plan=list(kgn.plan(n, chw[0], 4,
+                                              chw[1] * chw[2])),
+                           bytes=nbytes,
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+                for label, fl in (("hot", None), ("cold", flush)):
+                    p1 = time_cuda(lambda: kgn.group_norm_plain(x, 4, w, b),
+                                   iters=100, flush=fl)
+                    l1 = time_cuda(lambda: nnf.group_norm(x, 4, w, b),
+                                   iters=100, flush=fl)
+                    k1 = time_cuda(lambda: kgn.group_norm(x, 4, w, b),
+                                   iters=100, flush=fl)
+                    k2 = time_cuda(lambda: kgn.group_norm(x, 4, w, b),
+                                   iters=100, flush=fl)
+                    l2 = time_cuda(lambda: nnf.group_norm(x, 4, w, b),
+                                   iters=100, flush=fl)
+                    p2 = time_cuda(lambda: kgn.group_norm_plain(x, 4, w, b),
+                                   iters=100, flush=fl)
+                    sfx = "" if label == "cold" else "_hot"
+                    row.update({f"ms{sfx}": min(k1, k2),
+                                f"plain_ms{sfx}": min(p1, p2),
+                                f"library_ms{sfx}": min(l1, l2)})
+                rows.append(row)
+                print(f"group_norm N={n} C,H,W={chw} x{count[chw]}: plan "
+                      f"{row['plan']} cold {row['ms'] * 1e3:.2f} us hot "
+                      f"{row['ms_hot'] * 1e3:.2f} us; plain "
+                      f"{row['plain_ms'] * 1e3:.2f} / "
+                      f"{row['plain_ms_hot'] * 1e3:.2f}; nnf.group_norm "
+                      f"{row['library_ms'] * 1e3:.2f} / "
+                      f"{row['library_ms_hot'] * 1e3:.2f}; bound "
+                      f"{row['bound_ms'] * 1e3:.2f} us ({nbytes} B); "
+                      f"gaps {gap:.2e} / {gap_p:.2e}", flush=True)
+    totals = {}
+    for n in (1, 3):
+        mine = [r for r in rows if r["n"] == n]
+        for key in ("ms", "ms_hot", "plain_ms", "library_ms",
+                    "library_ms_hot", "bound_ms"):
+            totals[f"{key}_forward_n{n}"] = sum(r[key] * r["calls"]
+                                                for r in mine)
+        print(f"group_norm, the 53 calls of one forward at N={n}: kernel "
+              f"cold {totals[f'ms_forward_n{n}'] * 1e3:.1f} us hot "
+              f"{totals[f'ms_hot_forward_n{n}'] * 1e3:.1f} us; "
+              f"nnf.group_norm cold "
+              f"{totals[f'library_ms_forward_n{n}'] * 1e3:.1f} us hot "
+              f"{totals[f'library_ms_hot_forward_n{n}'] * 1e3:.1f} us; bound "
+              f"{totals[f'bound_ms_forward_n{n}'] * 1e3:.1f} us (device "
+              f"time: median of 100 CUDA-event timings, better of 2 rounds)",
+              flush=True)
+    torch.cuda.synchronize()
+    return worst, rows, totals
+
+
 def main_path_phase(torch, tmp):
     from dynaboa_tpu_torch.apps import benchmark
     from dynaboa_tpu_torch.kernels import lbs as klbs
 
+    from dynaboa_tpu_torch.kernels import group_norm as kgn
+
     expdir = os.path.join(tmp, "exps")
     klbs.skin.launches = 0
+    kgn.group_norm.launches = 0
     t0 = time.perf_counter()
     summary = benchmark.main([
         "--device", "cuda", "--synthetic", str(N_FRAMES),
@@ -381,6 +514,7 @@ def main_path_phase(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = klbs.skin.launches
+    gn_launches = kgn.group_norm.launches
 
     run = os.path.join(expdir, "smoke")
     for f in ("res.txt", "scalars.jsonl"):
@@ -396,11 +530,17 @@ def main_path_phase(torch, tmp):
     if launches < N_FRAMES:
         raise RuntimeError(f"skinning kernel launched {launches} times over "
                            f"{N_FRAMES} frames")
+    if gn_launches < 53 * N_FRAMES:
+        raise RuntimeError(f"GroupNorm kernel launched {gn_launches} times "
+                           f"over {N_FRAMES} frames")
     print(f"main path: {N_FRAMES} frames in {wall:.1f} s (first frame "
           f"{summary['first_frame_s']:.2f} s), steady {summary['fps']:.3f} "
           f"frames/s; per-frame extra steps {summary['optim_steps']}; "
           f"MPJPE {summary['mpjpe']:.2f} PA-MPJPE {summary['pampjpe']:.2f} "
-          f"PVE {summary['pve']:.2f}; kernel launches {launches}", flush=True)
+          f"PVE {summary['pve']:.2f}; kernel launches {launches}; "
+          f"GroupNorm kernel launches {gn_launches} (eager and captured "
+          f"calls)", flush=True)
+    summary["group_norm_launches"] = gn_launches
     return launches, summary
 
 
@@ -1595,6 +1735,11 @@ def drivers_phase(torch, tmp):
     out["soak"] = {"sequential_bitexact": seq, "parallel": par}
 
     print("--- 15d cold start, sweep", flush=True)
+    # the children share the card with this process: hand back the memory
+    # its allocator keeps cached from the phases before (the graph pools of
+    # dropped states among it), or a child meets a full card
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["coldstart"] = bench_coldstart.main(["--runs", "1"])
     seconds["coldstart"] = time.perf_counter() - t0
@@ -1783,14 +1928,25 @@ def main() -> int:
         print(f"tile {tile}: {built.lib.lbs_skin_smem_bytes(tile)} B dynamic "
               f"shared memory, {built.lib.lbs_skin_blocks_per_sm(tile, klbs.WARPS, 0)}"
               f" CTAs of {klbs.WARPS} warps per SM", flush=True)
+    from dynaboa_tpu_torch.kernels import group_norm as kgn
+
+    built_gn = kgn.library(0)
+    print(f"built {built_gn.path} in {built_gn.seconds:.1f} s", flush=True)
+    print("\n".join(line for line in built_gn.ptxas_log.splitlines()
+                    if any(w in line for w in ("Compiling", "registers",
+                                               "smem", "spill"))),
+          flush=True)
 
     phase("2 kernel vs plain, V=6890")
     max_err, times, geometries = kernel_phase(torch, dev)
+    phase("2b GroupNorm kernel vs ATen and plain, ResNet-50 shapes")
+    gn_err, gn_rows, gn_totals = group_norm_phase(torch, dev)
 
     phase(f"3 main path, {N_FRAMES} frames at full width")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, main_summary = main_path_phase(torch, tmp)
+        gn_launches = main_summary["group_norm_launches"]
         phase("4 tiny CLI run, cuda vs cpu")
         cross_device_phase(tmp)
         phase(f"5 windowed path, W={WINDOW}, full width")
@@ -1804,7 +1960,14 @@ def main() -> int:
         phase("9 --save_res overlays at full width")
         launches_o = save_res_phase(torch, tmp)
         phase("10 bf16 at full width")
-        launches_b, _ = bf16_phase(torch, dev, tmp, main_summary)
+        # the later phases do not depend on this one: a failure is raised
+        # once they have run, so that one run reports all of them
+        bf16_error = None
+        try:
+            launches_b, _ = bf16_phase(torch, dev, tmp, main_summary)
+        except Exception as e:
+            traceback.print_exc()
+            bf16_error, launches_b = e, None
         phase("11 parallel streams at full width")
         launches_p, _ = parallel_phase(torch, dev, tmp)
         phase("12 worst-case experiment flags at full width")
@@ -1844,6 +2007,12 @@ def main() -> int:
                              "bench": launches_bd, "soak": launches_sk,
                              **launches_at},
         "geometries": geometries,
+    }, {
+        "name": "group_norm", "route": "cuda",
+        "source": "dynaboa_tpu_torch/csrc/group_norm.cu",
+        "replaces": None, "launches": gn_launches,
+        "max_rel_err": gn_err, "library_call": "nnf.group_norm",
+        "bound_by": "bytes", "shapes": gn_rows, **gn_totals,
     }]
     print(info)
     print(json.dumps({"offline": offline}))
@@ -1851,6 +2020,9 @@ def main() -> int:
     print(json.dumps({"drivers": drivers}))
     print(json.dumps({"attribution": attribution}))
     print(json.dumps({"kernels": kernels}))
+    if bf16_error is not None:
+        raise RuntimeError("phase 10 (bf16 at full width) failed; the "
+                           "traceback is printed above") from bf16_error
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -76,12 +76,21 @@ class _Graph:
         """Capture ``fn`` on the buffers into ``pool``, on a side stream of
         their card; ``out`` holds its outputs, the loss and terms stacked
         into one vector.  (``torch.cuda.graph`` would also synchronize the
-        card and empty the allocator's caches before each capture, which a
-        capture into a private pool does not need.)"""
+        card and empty the allocator's caches before each capture; here the
+        caches are emptied once a state, ``GradGraphs._capture``.)
+
+        cuBLAS keeps a workspace per stream for the life of the process.
+        One first made inside the capture comes from ``pool`` and would keep
+        the pool, and every graph of the state, alive after the state is
+        dropped; one made before it would be memory the graph does not own.
+        So the workspaces are dropped before and after each capture, as
+        PyTorch's own graph trees do: the capture makes its own in ``pool``,
+        and it is freed with the pool."""
         with torch.cuda.device(self.buffers[0].device):
             self.graph = torch.cuda.CUDAGraph()
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
+            torch._C._cuda_clearCublasWorkspaces()
             with torch.cuda.stream(side):
                 # thread_local: the stream app's render worker waits on its
                 # copies' events and frees pinned buffers meanwhile
@@ -93,6 +102,7 @@ class _Graph:
                                 list(aux), feats, grads)
                 finally:
                     self.graph.capture_end()
+                    torch._C._cuda_clearCublasWorkspaces()
             torch.cuda.current_stream().wait_stream(side)
 
     def replay(self) -> None:
@@ -142,6 +152,10 @@ class GradGraphs:
         g = _Graph(inputs, binding)
         g.load(inputs)
         if self._pool is None:
+            # a dropped state's pool returns to the card only through
+            # empty_cache, and an allocation that fails inside a capture
+            # cannot call it: so a new state's first capture calls it
+            torch.cuda.empty_cache()
             self._pool = torch.cuda.graph_pool_handle()
         g.capture(fn, self._pool)
         g.replay()

@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels for the SMPL layer (counterpart of
-``dynaboa_tpu.kernels``): ``LBSKernelSMPL`` and ``skin`` stand where
-``PallasSMPL`` and ``skinning_kernel_call`` do.  Importing builds nothing:
-the kernel library is built at the first CUDA launch."""
+"""Hand-written CUDA kernels: the SMPL layer's skinning (counterpart of
+``dynaboa_tpu.kernels``: ``LBSKernelSMPL`` and ``skin`` stand where
+``PallasSMPL`` and ``skinning_kernel_call`` do) and HMR's GroupNorm
+(``kernels/group_norm.py``, which replaces no TPU kernel).  Importing builds
+nothing: each kernel library is built at its first CUDA launch."""
 
 from dynaboa_tpu_torch.kernels.lbs import LBSKernelSMPL, skin
 

@@ -35,8 +35,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as nnf
 
+from dynaboa_tpu_torch.kernels.group_norm import group_norm
 from dynaboa_tpu_torch.ops.rotations import rot6d_to_rotmat
 
 NPOSE = 24 * 6
@@ -48,11 +48,12 @@ class GroupNorm32(nn.GroupNorm):
     """GroupNorm computed in float32 whatever its input's dtype.  Autocast
     keeps ``group_norm`` in float32 on the card but not on the CPU, so the
     cast is made here, as the JAX GroupNorm reduces a bfloat16 input in
-    float32."""
+    float32.  On a card it runs as the Hopper kernel
+    ``kernels/group_norm.py``; on the CPU as ``nnf.group_norm``."""
 
     def forward(self, x):
-        return nnf.group_norm(x.float(), self.num_groups, self.weight,
-                              self.bias, self.eps)
+        return group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                          self.eps)
 
 
 def _gn(channels: int) -> nn.GroupNorm:

@@ -9,6 +9,7 @@ conftest:
   python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_graphs_cuda.py
 """
 
+import gc
 import json
 import math
 import os
@@ -35,6 +36,9 @@ WARM_FRAMES = 3
 # eager engines 3.8e-5, 1.5e-4 and 2.5e-4 (Adam scales near-zero gradients
 # to full steps)
 TOL = {"loss": 2e-4, "verts": 1e-3, "adam": 2e-3}
+# memory a round of fresh states may add: a cuBLAS workspace made again
+# after a capture drops them, and the allocator's caching and rounding
+SLACK_BYTES = 64 << 20
 
 
 @pytest.fixture(scope="module")
@@ -226,6 +230,37 @@ def test_second_state_captures_at_once(runs):
     assert engine.graph_stats["eager"] == before["eager"]
     assert engine.graph_stats["captures"] - before["captures"] == \
         len(state.graphs._graphs) == runs["graphed"]["keys"]
+
+
+@pytest.mark.cuda
+def test_dropped_states_give_their_graphs_memory_back(runs):
+    """A state dropped after its captures leaves no memory behind: over
+    rounds of a fresh state stepping two frames, the card's allocated and
+    reserved memory stay where the first round left them.  A graph pool
+    that something outside the state keeps (a cuBLAS workspace made inside
+    the capture), or that the allocator keeps cached, grows them by about a
+    pool, 1.2 GiB, a state; the next capture could not reclaim it."""
+    system = runs["system"]
+    engine = system.engine
+    frames = _frames(2, system.device, seed=2)
+    readings = []
+    for _ in range(4):
+        state = engine.init_state(system.params)
+        for fr in frames:
+            state, out = engine.step(state, fr, cos_sim_threshold=-1.0,
+                                     extra_cap=1)
+        assert state.graphs._graphs
+        del state, out
+        gc.collect()
+        torch.cuda.synchronize()
+        readings.append((torch.cuda.memory_allocated(),
+                         torch.cuda.memory_reserved()))
+    print(f"\n{runs['name']}: allocated, reserved a round (MiB) "
+          f"{[(a >> 20, r >> 20) for a, r in readings]}")
+    first = readings[0]
+    for allocated, reserved in readings[1:]:
+        assert allocated <= first[0] + SLACK_BYTES
+        assert reserved <= first[1] + SLACK_BYTES
 
 
 @pytest.mark.cuda
