@@ -15,10 +15,12 @@ Per frame:
   4. SMPL decode of the last forward + MPJPE / PA-MPJPE / PVE
   5. history-ring write
 
-The model names the taps the engine reads (``retrieval_tap``, the feature
-that picks the exemplars; ``gate_tap``, the signal whose cosine gates the
-updates) and the crop it projects at (``img_res``): HMR's are 5, 12 and 224
-(``models/hmr.py``), HMR 2.0's 1, 2 and 256 (``models/hmr2.py``).
+The engine reads of its model (a ``torch.nn.Module``) ``forward(NCHW) ->
+(rotmat, shape, cam, taps)``, ``compute_dtype``, the crop it projects at
+(``img_res``) and the taps it reads (``retrieval_tap``, the feature that
+picks the exemplars; ``gate_tap``, the signal whose cosine gates the
+updates): HMR's are 224, 5 and 12 (``models/hmr.py``), HMR 2.0's 256, 1
+and 2 (``models/hmr2.py``).
 
 The current frame, the history frame and the retrieved exemplar run as one
 batch through the backbone.  Update 0 retrieves with the pre-inner features
@@ -74,8 +76,6 @@ from dynaboa_tpu_torch.losses.adaptation import (
 from dynaboa_tpu_torch.losses.priors import GMMPrior
 from dynaboa_tpu_torch.metrics.eval import (GenderedSMPL, evaluate_pred,
                                             gt_targets)
-from dynaboa_tpu_torch.models.hmr import HMR
-from dynaboa_tpu_torch.models.hmr2 import HMR2
 from dynaboa_tpu_torch.models.smpl import smpl_forward
 from dynaboa_tpu_torch.ops.camera import project_to_crop
 from dynaboa_tpu_torch.tracing import span
@@ -117,9 +117,23 @@ class History(NamedTuple):
     active: torch.Tensor   # 0-d: 1.0 once step > interval, else 0.0
 
 
+class _Level(NamedTuple):
+    """What one level's gradient evaluation reads: the frame terms, the
+    history ring (motion loss), the exemplar rows (labeled loss) and the
+    teacher.  The engine builds one per level from the config, once; the
+    graph's inputs and the loss both read it.  ``name`` is the graph key's."""
+
+    name: str        # "lower" or "upper"
+    frame: bool
+    motion: bool
+    mixtrain: bool
+    teacher: bool
+
+
 class BilevelEngine:
-    def __init__(self, cfg: AdaptConfig, model: HMR | HMR2, prior: GMMPrior,
-                 smpls: GenderedSMPL, store: RetrievalStore | None = None,
+    def __init__(self, cfg: AdaptConfig, model: torch.nn.Module,
+                 prior: GMMPrior, smpls: GenderedSMPL,
+                 store: RetrievalStore | None = None,
                  compute_metrics: bool = True):
         if cfg.mixtrain and store is None:
             raise ValueError("mixtrain requires a RetrievalStore")
@@ -147,6 +161,18 @@ class BilevelEngine:
         self._warm: set = set()
         self.graph_stats = new_stats()
 
+        def level(name):
+            temporal = getattr(cfg, f"use_temporal_losses_{name}")
+            return _Level(name, *map(bool, (
+                getattr(cfg, f"use_frame_losses_{name}"),
+                temporal and cfg.use_motion,
+                getattr(cfg, f"{name}_level_mixtrain"),
+                temporal and cfg.use_meanteacher)))
+
+        self._lower, self._upper = level("lower"), level("upper")
+        # fast_extra_updates' extra updates leave out the exemplar row
+        self._upper_fast = self._upper._replace(mixtrain=False)
+
     # -- model wrappers ------------------------------------------------------
 
     def _forward(self, params: dict, image: torch.Tensor):
@@ -173,11 +199,6 @@ class BilevelEngine:
 
     # -- losses --------------------------------------------------------------
 
-    def _teacher_active(self, level: str) -> bool:
-        use_temporal = (self.cfg.use_temporal_losses_lower if level == "lower"
-                        else self.cfg.use_temporal_losses_upper)
-        return use_temporal and self.cfg.use_meanteacher
-
     @torch.no_grad()
     def _teacher_outs(self, teacher_params, frame: Frame):
         t_rotmat, t_shape, t_cam, _ = self._forward(teacher_params, frame.image)
@@ -191,25 +212,18 @@ class BilevelEngine:
                        self._motion_switch[int(state.step
                                                > self.cfg.interval)])
 
-    def _partial_level(self, params, frame: Frame, state: AdaptState, bank,
-                       level: str, mixtrain=None, hist: History | None = None):
-        """Lower/upper loss without the teacher term: the frame, history and
-        exemplar rows in one batched forward.  ``mixtrain=False`` drops the
-        exemplar row (``fast_extra_updates``); ``hist`` stands for the
-        state's ring when given."""
+    def _partial_level(self, params, frame: Frame, bank, lv: _Level,
+                       hist: History | None):
+        """Level ``lv``'s loss without the teacher term: the frame, history
+        and exemplar rows in one batched forward.  ``hist`` is read when
+        ``lv.motion``, ``bank`` when ``lv.mixtrain``."""
         cfg = self.cfg
-        use_frame = (cfg.use_frame_losses_lower if level == "lower"
-                     else cfg.use_frame_losses_upper)
-        use_motion, use_mixtrain, _ = self._uses(level, mixtrain)
-
         B = frame.image.shape[0]
         imgs = [frame.image]
-        if use_motion:
-            if hist is None:
-                hist = self._history(state)
+        if lv.motion:
             imgs.append(hist.image)
         n_ex = 0
-        if use_mixtrain:
+        if lv.mixtrain:
             imgs.append(bank.images)
             n_ex = bank.images.shape[0]
         x = torch.cat(imgs, dim=0) if len(imgs) > 1 else imgs[0]
@@ -225,7 +239,7 @@ class BilevelEngine:
 
         aux: dict[str, torch.Tensor] = {}
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
-        if use_frame:
+        if lv.frame:
             loss, parts = frame_loss(
                 self.prior, s2d[fr], rotmat[fr], shape[fr], frame.j2d,
                 cfg.s2dloss_weight, cfg.shape_prior_weight,
@@ -234,7 +248,7 @@ class BilevelEngine:
                             if cfg.keypoint_source == "openpose" else None))
             aux.update(parts)
             aux["unlabelloss"] = loss
-        if use_motion:
+        if lv.motion:
             # over the 25 OpenPose joints on the stream app's path
             # (reference dynaboa_webcam.py:277), else the 24 GT joints;
             # always computed, masked until step > interval
@@ -244,7 +258,7 @@ class BilevelEngine:
                              s2d[hi][:, ksl], hist.j2d[:, ksl], frame.mask)
             loss = loss + ml * hist.active * cfg.motionloss_weight
             aux["motion_loss"] = ml * hist.active
-        if use_mixtrain:
+        if lv.mixtrain:
             ll, lparts = labeled_loss(
                 rotmat[ex], shape[ex], s2d[ex], s3d[ex],
                 bank.pose, bank.betas, bank.keypoints, bank.pose_3d)
@@ -254,40 +268,25 @@ class BilevelEngine:
         touts = (rotmat[fr], shape[fr], s2d[fr], s3d[fr])
         return loss, touts, feats, aux
 
-    def _level_loss(self, params, frame, state, bank, level,
-                    teacher_params=None, mixtrain=None, hist=None):
-        """Full loss at one level: partial terms + teacher distillation."""
-        loss, touts, feats, aux = self._partial_level(
-            params, frame, state, bank, level, mixtrain, hist)
-        if self._teacher_active(level):
-            t_out = self._teacher_outs(
-                state.teacher_params if teacher_params is None
-                else teacher_params, frame)
+    def _level_loss(self, params, frame, bank, lv: _Level, teacher, hist):
+        """Full loss at one level: partial terms + teacher distillation;
+        ``teacher`` (the teacher's parameters) is read when ``lv.teacher``."""
+        loss, touts, feats, aux = self._partial_level(params, frame, bank, lv,
+                                                      hist)
+        if lv.teacher:
+            t_out = self._teacher_outs(teacher, frame)
             tl, tparts = teacher_loss(*touts, *t_out, row_w=frame.mask)
             loss = loss + tl * self.cfg.teacherloss_weight
             aux["teacherloss"] = tl
             aux.update({f"teacher_{k}": v for k, v in tparts.items()})
         return loss, feats, aux
 
-    def _value_and_grad(self, params, frame, state, bank, level,
-                        teacher_params=None, mixtrain=None, hist=None):
-        loss, feats, aux = self._level_loss(params, frame, state, bank, level,
-                                            teacher_params, mixtrain, hist)
+    def _value_and_grad(self, params, frame, bank, lv, teacher, hist):
+        loss, feats, aux = self._level_loss(params, frame, bank, lv, teacher,
+                                            hist)
         grads = torch.autograd.grad(loss, list(params.values()))
         return (loss.detach(), tuple(f.detach() for f in feats),
                 {k: v.detach() for k, v in aux.items()}, grads)
-
-    def _uses(self, level: str, mixtrain=None) -> tuple[bool, bool, bool]:
-        """Whether a level's loss reads the history ring, the exemplar rows
-        and the teacher."""
-        cfg = self.cfg
-        temporal = (cfg.use_temporal_losses_lower if level == "lower"
-                    else cfg.use_temporal_losses_upper)
-        if mixtrain is None:
-            mixtrain = (cfg.lower_level_mixtrain if level == "lower"
-                        else cfg.upper_level_mixtrain)
-        return (temporal and cfg.use_motion, bool(mixtrain),
-                self._teacher_active(level))
 
     @staticmethod
     def _grad_key(level: str, own_params: bool, frame: Frame,
@@ -302,27 +301,25 @@ class BilevelEngine:
         return (level, own_params, spec(frame), spec(hist), spec(bank))
 
     def _grad(self, state: AdaptState, params: dict, frame: Frame, bank,
-              level: str, mixtrain=None):
-        """``_value_and_grad`` at ``params`` (``state.params`` or the
-        inner-adapted clone) with the state's teacher and history; on a
-        card through ``state.graphs``.  The features and gradients it
+              lv: _Level):
+        """``_value_and_grad`` of level ``lv`` at ``params`` (the state's
+        or the inner-adapted clone) with the state's teacher and history; on
+        a card through ``state.graphs``.  The features and gradients it
         returns are to be consumed before the next evaluation."""
-        use_hist, use_bank, use_teacher = self._uses(level, mixtrain)
-        teacher = state.teacher_params
         # of the frame the gradient reads the image, keypoints and mask
         inputs = (frame._replace(pose=None, betas=None, gender=None),
-                  self._history(state) if use_hist else None,
-                  bank if use_bank else None)
+                  self._history(state) if lv.motion else None,
+                  bank if lv.mixtrain else None)
+        teacher = state.teacher_params if lv.teacher else {}
 
         def evaluate(fr, hist, bk):
-            return self._value_and_grad(params, fr, None, bk, level, teacher,
-                                        mixtrain, hist)
+            return self._value_and_grad(params, fr, bk, lv, teacher, hist)
 
         if not self._graphed:
             self.graph_stats["eager"] += 1
             return evaluate(*inputs)
-        key = self._grad_key(level, params is state.params, *inputs)
-        bound = [*params.values(), *(teacher.values() if use_teacher else ())]
+        key = self._grad_key(lv.name, params is state.params, *inputs)
+        bound = [*params.values(), *teacher.values()]
         return state.graphs.evaluate(key, self._warm, self.graph_stats,
                                      evaluate, inputs, bound)
 
@@ -350,6 +347,13 @@ class BilevelEngine:
         teacher = list(state.teacher_params.values())
         torch._foreach_mul_(teacher, a)
         torch._foreach_add_(teacher, list(state.params.values()), alpha=1.0 - a)
+
+    def _outer_step(self, state: AdaptState, grads):
+        """Adam on the state's params, then the teacher EMA."""
+        with span("step.optim"):
+            self._outer_update(grads, state)
+            if self.cfg.use_meanteacher:
+                self._ema_teacher(state)
 
     @torch.no_grad()
     def _metrics(self, verts, targets):
@@ -449,7 +453,7 @@ class BilevelEngine:
                     bank = self._retrieve(feat_r, state.rng)
                 with span("step.grad.lower"):
                     ll, lfeats, lower_aux, g = self._grad(
-                        state, learner, frame, bank, "lower")
+                        state, learner, frame, bank, self._lower)
                 with span("step.inner_update"):
                     # the clone params - fastlr * g, written over g: on a
                     # card g is the lower graph's own output, so the clone
@@ -511,14 +515,11 @@ class BilevelEngine:
                 eval_params = learner if n == 0 else state.params
                 with span("step.grad.upper"):
                     ul, _, aux, g = self._grad(
-                        state, eval_params, frame, bank, "upper",
-                        mixtrain=False if fast else None)
+                        state, eval_params, frame, bank,
+                        self._upper_fast if fast else self._upper)
                 aux["loss"] = ul
                 losses[n] = ul
-                with span("step.optim"):
-                    self._outer_update(g, state)
-                    if cfg.use_meanteacher:
-                        self._ema_teacher(state)
+                self._outer_step(state, g)
                 with torch.no_grad():
                     # post-update forward: the gate signal, and the final
                     # prediction when the loop stops here
@@ -557,13 +558,10 @@ class BilevelEngine:
                                       state.rng)
             with span("step.grad.lower"):
                 ll, _, lower_aux, g = self._grad(
-                    state, state.params, frame, bank, "lower")
+                    state, state.params, frame, bank, self._lower)
             lower_aux["loss"] = ll
             outputs["lower"] = lower_aux
-            with span("step.optim"):
-                self._outer_update(g, state)
-                if cfg.use_meanteacher:
-                    self._ema_teacher(state)
+            self._outer_step(state, g)
 
         with span("step.decode"), torch.no_grad():
             if cfg.use_boa:

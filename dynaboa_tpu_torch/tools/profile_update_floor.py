@@ -8,7 +8,7 @@ both ends; ms per frame, updates per frame and ms per update.  Then each
 part of one dynamic update (reference protocol: dynaboa_benchmark.py:147-192)
 runs alone, through the engine's own methods on the same inputs:
 
-* ``grad(batched fwd+bwd)`` -- ``_level_loss(..., "upper", teacher)`` and
+* ``grad(batched fwd+bwd)`` -- ``_level_loss`` of the upper level and
                                ``torch.autograd.grad`` over the batched
                                frame + history + exemplar rows, then
                                ``p -= 1e-6 * g`` in place
@@ -91,8 +91,9 @@ def grad_body(engine, frame, state, bank):
     params = list(state.params.values())
 
     def body():
-        loss, _, _ = engine._level_loss(state.params, frame, state, bank,
-                                        "upper", state.teacher_params)
+        loss, _, _ = engine._level_loss(state.params, frame, bank,
+                                        engine._upper, state.teacher_params,
+                                        engine._history(state))
         g = torch.autograd.grad(loss, params)
         with torch.no_grad():
             torch._foreach_sub_(params, torch._foreach_mul(g, 1e-6))

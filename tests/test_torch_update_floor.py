@@ -83,8 +83,9 @@ def test_grad_arm_update_and_gradient_against_jax(engines):
     with torch.no_grad():
         feats = tengine._forward(tstate.params, tframe.image)[3]
     bank = tengine._retrieve(feats[5][0], torch.Generator().manual_seed(0))
-    *_, g = tengine._value_and_grad(tstate.params, tframe, tstate, bank,
-                                    "upper", tstate.teacher_params)
+    *_, g = tengine._value_and_grad(tstate.params, tframe, bank,
+                                    tengine._upper, tstate.teacher_params,
+                                    tengine._history(tstate))
     p0 = {k: v.detach().clone() for k, v in tstate.params.items()}
     leaves = list(tstate.params.values())
     puf.grad_body(tengine, tframe, tstate, bank)()
