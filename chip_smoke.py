@@ -5,7 +5,7 @@
 
 Phases, each of which raises (non-zero exit) on failure:
   0. the card: name and power limit from nvidia-smi
-  1. build the Hopper skinning and GroupNorm kernels from
+  1. build the Hopper skinning, GroupNorm and convolution kernels from
      dynaboa_tpu_torch/csrc with nvcc; print ptxas' registers, shared memory
      and spills, and each tile's dynamic shared memory and CTAs per SM
   2. the kernel against its plain PyTorch version at full SMPL size
@@ -22,11 +22,20 @@ Phases, each of which raises (non-zero exit) on failure:
      times hot and cold beside the bound (x read once, y written once over
      the HBM rate), the plain version and nnf.group_norm (library_ms), and
      the 53 calls of one forward summed
+ 2c. the forward-convolution kernel (csrc/conv_fprop.cu) at the 23
+     convolution shapes of one full-width HMR forward, N = 1 and 3 (conv1
+     on a channels_last view of an NHWC crop): its output and layout
+     against nnf.conv2d and the plain version; times hot and cold beside
+     the bound (the FLOPs at 67 TFLOP/s, or the bytes at 3.35 TB/s, the
+     larger), the plain version and nnf.conv2d (library_ms); the 53 calls
+     of one forward summed; and a whole no-grad HMR forward with the kernel
+     and with nnf.conv2d in its place, its device time and the host's time
+     to enqueue it
   3. the main path: the port's 3DPW benchmark CLI, 8 synthetic frames of
      per-frame dynamic bilevel adaptation at full width (ResNet-50-GN,
      224^2, V = 6890) with the skinning kernel on; the kernel's launch count
-     over that run must reach the frame count, the GroupNorm kernel's 53 a
-     frame
+     over that run must reach the frame count, the GroupNorm kernel's and
+     the convolution kernel's 53 a frame each
   4. the same CLI at a tiny size on the card and on the CPU from the same
      seed, every update taken: step counts, losses and metrics must agree
   5. the windowed path at full width: 20 frames in windows of 8 (the last
@@ -163,6 +172,8 @@ RESUME_FRAMES, RESUME_STOP = 12, 8
 KERNEL_ATOL = 1e-5     # fp32, different summation order over 207 + 24 terms
 KERNEL_RTOL = 1e-5
 GN_TOL = 1e-6          # GroupNorm: fp32 sums in another order, a few ulp
+CONV_TOL = 1e-5        # convolution: fp32 sums of up to 4,608 products in
+                       # another order, ~sqrt(terms) ulp of the output's scale
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, CUDA cores
 GEOMETRIES = ((32, 8), (32, 4), (64, 8))   # (vertices per CTA, warps per CTA)
@@ -498,15 +509,219 @@ def group_norm_phase(torch, dev):
     return worst, rows, totals
 
 
+def conv_shapes(torch, dev):
+    """The ((C, H, W), K, kernel, stride, padding) of each of the 53
+    convolutions of one full-width HMR forward on ``dev``, in order, with
+    whether its input is contiguous, from a forward of an NHWC image viewed
+    as NCHW, as the engine feeds it."""
+    from dynaboa_tpu_torch.models.hmr import HMR, Conv2d32
+
+    model = HMR().to(dev)
+    calls = []
+
+    def hook(mod, args):
+        x = args[0]
+        calls.append(((tuple(x.shape[1:]), mod.out_channels,
+                       mod.kernel_size[0], mod.stride[0], mod.padding[0]),
+                      x.is_contiguous()))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, Conv2d32)]
+    with torch.no_grad():
+        model(torch.zeros((1, 224, 224, 3), device=dev).permute(0, 3, 1, 2))
+    for h in handles:
+        h.remove()
+    return calls
+
+
+def forward_ms(torch, fn, iters: int = 20) -> float:
+    """Median device milliseconds of ``fn()``, a whole forward, from CUDA
+    events around each call, behind a ~30 ms device sleep: the forward's
+    hundreds of launches are queued before the first of them runs, so the
+    events time the device and not the host's dispatch."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda._sleep(50_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def enqueue_ms(torch, fn, iters: int = 20) -> float:
+    """Median host milliseconds to enqueue ``fn()`` on an idle card (a
+    whole forward's launches fit the launch queue, so the host never
+    waits on the device inside the timing)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def conv_phase(torch, dev):
+    """The forward-convolution kernel at the main path's shapes (N = 1 and
+    3; conv1 on a channels_last view of an NHWC crop, as the engine feeds
+    it) against ATen's convolution and the plain version: the gaps, then
+    times hot and cold beside the bound (the FLOPs at the fp32 rate, or
+    the input, weight and output bytes at the HBM rate, the larger), the
+    plain version and ``nnf.conv2d`` (library_ms); the 53 calls of one
+    forward summed; and a whole no-grad HMR forward with the kernel and
+    with ATen's convolution in its place, on the device and on the host."""
+    import torch.nn.functional as nnf
+
+    from dynaboa_tpu_torch.kernels import conv as kc
+    from dynaboa_tpu_torch.models import hmr as mhmr
+
+    calls = conv_shapes(torch, dev)
+    if len(calls) != 53:
+        raise RuntimeError(f"{len(calls)} convolutions in a forward")
+    count = {}
+    for shape, _ in calls:
+        count[shape] = count.get(shape, 0) + 1
+    print(f"convolutions of one forward: {len(count)} shapes, "
+          f"{sum(not c for _, c in calls)} of 53 inputs not contiguous",
+          flush=True)
+    scrub = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scrub.zero_()
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, worst = [], 0.0
+    with torch.no_grad():
+        for n in (1, 3):
+            for shape in count:
+                (C, H, W), K, k, s, p = shape
+                if C == 3:      # conv1: a channels_last view of NHWC
+                    x = torch.randn((n, H, W, C), generator=g,
+                                    device=dev).permute(0, 3, 1, 2)
+                else:
+                    x = torch.randn((n, C, H, W), generator=g, device=dev)
+                w = torch.randn((K, C, k, k), generator=g, device=dev) * (
+                    2.0 / (k * k * K)) ** 0.5
+                st, pd = (s, s), (p, p)
+                y = kc.conv2d(x, w, None, st, pd)
+                ref = nnf.conv2d(x, w, None, s, p)
+                plain = kc.conv2d_plain(x, w, st, pd)
+                gap = float((y - ref).abs().max() / ref.abs().max())
+                gap_p = float((y - plain).abs().max() / plain.abs().max())
+                if not max(gap, gap_p) <= CONV_TOL or \
+                        y.stride() != ref.stride():
+                    raise RuntimeError(f"conv N={n} {shape}: gap {gap} to "
+                                       f"ATen, {gap_p} to plain, strides "
+                                       f"{y.stride()} against "
+                                       f"{ref.stride()}")
+                worst = max(worst, gap, gap_p)
+                P = kc.out_size(H, k, s, p)
+                flops = 2 * K * C * k * k * n * P * P
+                nbytes = 4 * (x.numel() + w.numel() + y.numel())
+                t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+                pl = kc.plan(K, n * P * P, C * k * k, k)
+                row = dict(n=n, shape=[list(shape[0]), *shape[1:]],
+                           calls=count[shape], flops=flops, bytes=nbytes,
+                           plan=dict(bm=pl.bm, bn=pl.bn, split=pl.split,
+                                     ctas=pl.ctas),
+                           bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by="operations" if t_ops >= t_bytes
+                           else "bytes")
+                for label, fl in (("hot", None), ("cold", flush)):
+                    times = {"ms": [], "plain_ms": [], "library_ms": []}
+                    for key in ("plain_ms", "library_ms", "ms", "ms",
+                                "library_ms", "plain_ms"):
+                        fn = {"ms": lambda: kc.conv2d(x, w, None, st, pd),
+                              "plain_ms": lambda: kc.conv2d_plain(x, w, st,
+                                                                  pd),
+                              "library_ms": lambda: nnf.conv2d(x, w, None, s,
+                                                               p)}[key]
+                        times[key].append(time_cuda(fn, iters=100, flush=fl))
+                    sfx = "" if label == "cold" else "_hot"
+                    row.update({f"{k2}{sfx}": min(v)
+                                for k2, v in times.items()})
+                row["share_of_bound_hot"] = row["bound_ms"] / row["ms_hot"]
+                rows.append(row)
+                print(f"conv N={n} {shape} x{count[shape]}: plan "
+                      f"{pl.bm}x{pl.bn} split {pl.split} ({pl.ctas} CTAs) "
+                      f"cold {row['ms'] * 1e3:.2f} us hot "
+                      f"{row['ms_hot'] * 1e3:.2f} us; plain "
+                      f"{row['plain_ms'] * 1e3:.2f} / "
+                      f"{row['plain_ms_hot'] * 1e3:.2f}; nnf.conv2d "
+                      f"{row['library_ms'] * 1e3:.2f} / "
+                      f"{row['library_ms_hot'] * 1e3:.2f}; bound "
+                      f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+                      f"{flops} FLOP, {nbytes} B), "
+                      f"{100 * row['share_of_bound_hot']:.1f} % of it hot; "
+                      f"gaps {gap:.2e} / {gap_p:.2e}", flush=True)
+    totals = {}
+    for n in (1, 3):
+        mine = [r for r in rows if r["n"] == n]
+        for key in ("ms", "ms_hot", "plain_ms", "plain_ms_hot", "library_ms",
+                    "library_ms_hot", "bound_ms"):
+            totals[f"{key}_forward_n{n}"] = sum(r[key] * r["calls"]
+                                                for r in mine)
+        print(f"conv, the 53 calls of one forward at N={n}: kernel cold "
+              f"{totals[f'ms_forward_n{n}'] * 1e3:.1f} us hot "
+              f"{totals[f'ms_hot_forward_n{n}'] * 1e3:.1f} us; nnf.conv2d "
+              f"cold {totals[f'library_ms_forward_n{n}'] * 1e3:.1f} us hot "
+              f"{totals[f'library_ms_hot_forward_n{n}'] * 1e3:.1f} us; bound "
+              f"{totals[f'bound_ms_forward_n{n}'] * 1e3:.1f} us (device "
+              f"time: median of 100 CUDA-event timings, better of 2 rounds)",
+              flush=True)
+    # a whole no-grad forward with the kernel, then with ATen's convolution:
+    # its device time, and the host's time to enqueue it (the eager
+    # forwards of the step wait on the latter)
+    model = mhmr.HMR().to(dev).eval()
+    for n in (1, 3):
+        x = torch.randn((n, 224, 224, 3), generator=g,
+                        device=dev).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            fwd, host = {}, {}
+            for label in ("kernel", "aten", "aten", "kernel"):
+                if label == "aten":
+                    mhmr.conv2d = lambda x, w, b, s, p, d, gr: nnf.conv2d(
+                        x, w, b, s, p, d, gr)
+                try:
+                    fwd.setdefault(label, []).append(
+                        forward_ms(torch, lambda: model(x)))
+                    host.setdefault(label, []).append(
+                        enqueue_ms(torch, lambda: model(x)))
+                finally:
+                    mhmr.conv2d = kc.conv2d
+        for key, val in (("hmr_forward_ms", fwd["kernel"]),
+                         ("hmr_forward_library_ms", fwd["aten"]),
+                         ("hmr_forward_host_ms", host["kernel"]),
+                         ("hmr_forward_host_library_ms", host["aten"])):
+            totals[f"{key}_n{n}"] = min(val)
+        print(f"HMR no-grad forward at N={n}: {min(fwd['kernel']):.3f} ms "
+              f"of device with the kernel, {min(fwd['aten']):.3f} ms with "
+              f"nnf.conv2d; {min(host['kernel']):.3f} / "
+              f"{min(host['aten']):.3f} ms of host to enqueue it",
+              flush=True)
+    torch.cuda.synchronize()
+    return worst, rows, totals
+
+
 def main_path_phase(torch, tmp):
     from dynaboa_tpu_torch.apps import benchmark
     from dynaboa_tpu_torch.kernels import lbs as klbs
 
+    from dynaboa_tpu_torch.kernels import conv as kc
     from dynaboa_tpu_torch.kernels import group_norm as kgn
 
     expdir = os.path.join(tmp, "exps")
     klbs.skin.launches = 0
     kgn.group_norm.launches = 0
+    kc.conv2d.launches = 0
     t0 = time.perf_counter()
     summary = benchmark.main([
         "--device", "cuda", "--synthetic", str(N_FRAMES),
@@ -515,6 +730,7 @@ def main_path_phase(torch, tmp):
     wall = time.perf_counter() - t0
     launches = klbs.skin.launches
     gn_launches = kgn.group_norm.launches
+    conv_launches = kc.conv2d.launches
 
     run = os.path.join(expdir, "smoke")
     for f in ("res.txt", "scalars.jsonl"):
@@ -533,14 +749,18 @@ def main_path_phase(torch, tmp):
     if gn_launches < 53 * N_FRAMES:
         raise RuntimeError(f"GroupNorm kernel launched {gn_launches} times "
                            f"over {N_FRAMES} frames")
+    if conv_launches < 53 * N_FRAMES:
+        raise RuntimeError(f"convolution kernel launched {conv_launches} "
+                           f"times over {N_FRAMES} frames")
     print(f"main path: {N_FRAMES} frames in {wall:.1f} s (first frame "
           f"{summary['first_frame_s']:.2f} s), steady {summary['fps']:.3f} "
           f"frames/s; per-frame extra steps {summary['optim_steps']}; "
           f"MPJPE {summary['mpjpe']:.2f} PA-MPJPE {summary['pampjpe']:.2f} "
           f"PVE {summary['pve']:.2f}; kernel launches {launches}; "
-          f"GroupNorm kernel launches {gn_launches} (eager and captured "
-          f"calls)", flush=True)
+          f"GroupNorm kernel launches {gn_launches}, convolution kernel "
+          f"launches {conv_launches} (eager and captured calls)", flush=True)
     summary["group_norm_launches"] = gn_launches
+    summary["conv_launches"] = conv_launches
     return launches, summary
 
 
@@ -1937,16 +2157,29 @@ def main() -> int:
                                                "smem", "spill"))),
           flush=True)
 
+    from dynaboa_tpu_torch.kernels import conv as kc
+
+    built_conv = kc.library(0)
+    print(f"built {built_conv.path} in {built_conv.seconds:.1f} s",
+          flush=True)
+    print("\n".join(line for line in built_conv.ptxas_log.splitlines()
+                    if any(w in line for w in ("Compiling", "registers",
+                                               "smem", "spill"))),
+          flush=True)
+
     phase("2 kernel vs plain, V=6890")
     max_err, times, geometries = kernel_phase(torch, dev)
     phase("2b GroupNorm kernel vs ATen and plain, ResNet-50 shapes")
     gn_err, gn_rows, gn_totals = group_norm_phase(torch, dev)
+    phase("2c convolution kernel vs ATen and plain, ResNet-50 shapes")
+    conv_err, conv_rows, conv_totals = conv_phase(torch, dev)
 
     phase(f"3 main path, {N_FRAMES} frames at full width")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, main_summary = main_path_phase(torch, tmp)
         gn_launches = main_summary["group_norm_launches"]
+        conv_launches = main_summary["conv_launches"]
         phase("4 tiny CLI run, cuda vs cpu")
         cross_device_phase(tmp)
         phase(f"5 windowed path, W={WINDOW}, full width")
@@ -2013,6 +2246,12 @@ def main() -> int:
         "replaces": None, "launches": gn_launches,
         "max_rel_err": gn_err, "library_call": "nnf.group_norm",
         "bound_by": "bytes", "shapes": gn_rows, **gn_totals,
+    }, {
+        "name": "conv_fprop", "route": "cuda",
+        "source": "dynaboa_tpu_torch/csrc/conv_fprop.cu",
+        "replaces": None, "launches": conv_launches,
+        "max_rel_err": conv_err, "library_call": "nnf.conv2d",
+        "bound_by": "operations", "shapes": conv_rows, **conv_totals,
     }]
     print(info)
     print(json.dumps({"offline": offline}))

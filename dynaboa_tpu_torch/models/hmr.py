@@ -22,7 +22,10 @@ through ``layer4``) under ``torch.autocast`` in bfloat16, as the JAX model's
 ``compute_dtype`` does: tap 0 (a convolution's output) is bfloat16, GroupNorm
 and everything after it float32.  The regressor runs outside autocast, in
 float32 like the JAX model's ``nn.Dense`` layers; parameters, gradients and
-every update stay float32.
+every update stay float32.  On a card the float32 convolutions
+(``Conv2d32``) run as the Hopper kernel ``kernels/conv.py`` and the
+GroupNorms as ``kernels/group_norm.py``; under autocast the convolutions
+stay ATen's.
 
 ``HMRISO`` is the dual-head variant with a BatchNorm backbone (fp32 only);
 ``iso_params_from_jax`` carries the JAX package's HMRISO variables across.
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dynaboa_tpu_torch.kernels.conv import conv2d
 from dynaboa_tpu_torch.kernels.group_norm import group_norm
 from dynaboa_tpu_torch.ops.rotations import rot6d_to_rotmat
 
@@ -56,6 +60,19 @@ class GroupNorm32(nn.GroupNorm):
                           self.eps)
 
 
+class Conv2d32(nn.Conv2d):
+    """A convolution that runs in float32 on a card as the Hopper kernel
+    ``kernels/conv.py`` (its backward is ATen's), on the CPU as
+    ``nnf.conv2d``.  Under autocast it is ``nn.Conv2d`` itself, so the
+    bfloat16 arm's arithmetic is ATen's, as before."""
+
+    def forward(self, x):
+        if torch.is_autocast_enabled(x.device.type):
+            return super().forward(x)
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                      self.dilation, self.groups)
+
+
 def _gn(channels: int) -> nn.GroupNorm:
     # GroupNorm(4 groups), eps 1e-5
     return GroupNorm32(4, channels, eps=1e-5)
@@ -70,14 +87,15 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: nn.Module | None = None, norm=_gn):
+                 downsample: nn.Module | None = None, norm=_gn,
+                 conv=Conv2d32):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = conv(inplanes, planes, 1, bias=False)
         self.bn1 = norm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = conv(planes, planes, 3, stride=stride, padding=1,
+                          bias=False)
         self.bn2 = norm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = conv(planes, planes * 4, 1, bias=False)
         self.bn3 = norm(planes * 4)
         self.relu = nn.ReLU()
         self.downsample = downsample
@@ -102,15 +120,15 @@ def _register_mean_params(module: nn.Module, mean_pose, mean_shape,
 
 
 def _make_layer(net: nn.Module, planes: int, blocks: int, stride: int,
-                norm) -> nn.Sequential:
+                norm, conv) -> nn.Sequential:
     """One ResNet stage; its first block downsamples. ``net.inplanes``
     carries the channel count from stage to stage."""
     downsample = nn.Sequential(
-        nn.Conv2d(net.inplanes, planes * 4, 1, stride=stride, bias=False),
+        conv(net.inplanes, planes * 4, 1, stride=stride, bias=False),
         norm(planes * 4))
-    mods = [Bottleneck(net.inplanes, planes, stride, downsample, norm)]
+    mods = [Bottleneck(net.inplanes, planes, stride, downsample, norm, conv)]
     net.inplanes = planes * 4
-    mods += [Bottleneck(net.inplanes, planes, norm=norm)
+    mods += [Bottleneck(net.inplanes, planes, norm=norm, conv=conv)
              for _ in range(1, blocks)]
     return nn.Sequential(*mods)
 
@@ -137,15 +155,15 @@ class HMR(nn.Module):
         self.regressor_dim = regressor_dim
         self.n_iter = n_iter
         w = width
-        self.conv1 = nn.Conv2d(3, w, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d32(3, w, 7, stride=2, padding=3, bias=False)
         self.bn1 = _gn(w)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.inplanes = w
-        self.layer1 = _make_layer(self, w, layers[0], 1, _gn)
-        self.layer2 = _make_layer(self, 2 * w, layers[1], 2, _gn)
-        self.layer3 = _make_layer(self, 4 * w, layers[2], 2, _gn)
-        self.layer4 = _make_layer(self, 8 * w, layers[3], 2, _gn)
+        self.layer1 = _make_layer(self, w, layers[0], 1, _gn, Conv2d32)
+        self.layer2 = _make_layer(self, 2 * w, layers[1], 2, _gn, Conv2d32)
+        self.layer3 = _make_layer(self, 4 * w, layers[2], 2, _gn, Conv2d32)
+        self.layer4 = _make_layer(self, 8 * w, layers[3], 2, _gn, Conv2d32)
         feat = 8 * w * Bottleneck.expansion
         self.fc1 = nn.Linear(feat + NPOSE + 13, regressor_dim)
         self.drop1 = nn.Dropout(0.5)
@@ -336,10 +354,10 @@ class HMRISO(nn.Module):
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.inplanes = w
-        self.layer1 = _make_layer(self, w, layers[0], 1, _bn)
-        self.layer2 = _make_layer(self, 2 * w, layers[1], 2, _bn)
-        self.layer3 = _make_layer(self, 4 * w, layers[2], 2, _bn)
-        self.layer4 = _make_layer(self, 8 * w, layers[3], 2, _bn)
+        self.layer1 = _make_layer(self, w, layers[0], 1, _bn, nn.Conv2d)
+        self.layer2 = _make_layer(self, 2 * w, layers[1], 2, _bn, nn.Conv2d)
+        self.layer3 = _make_layer(self, 4 * w, layers[2], 2, _bn, nn.Conv2d)
+        self.layer4 = _make_layer(self, 8 * w, layers[3], 2, _bn, nn.Conv2d)
         feat = 8 * w * Bottleneck.expansion
         self.fsl = _RegressorHead(feat, regressor_dim)
         self.ssl = _RegressorHead(feat, regressor_dim)
