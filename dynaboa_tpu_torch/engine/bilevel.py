@@ -20,7 +20,16 @@ The engine reads of its model (a ``torch.nn.Module``) ``forward(NCHW) ->
 (``img_res``) and the taps it reads (``retrieval_tap``, the feature that
 picks the exemplars; ``gate_tap``, the signal whose cosine gates the
 updates): HMR's are 224, 5 and 12 (``models/hmr.py``), HMR 2.0's 256, 1
-and 2 (``models/hmr2.py``).
+and 2 (``models/hmr2.py``), CLIFF's 256, 0 and 6 (``models/cliff.py``).
+A model that declares ``box_conditioned`` (CLIFF) takes ``forward(NCHW,
+box)``: every row it runs (frame, history, exemplar) carries its box, as
+``Frame.box``, the history ring's ``hist_box`` and ``ExemplarBank.box``.
+The projection the losses, the teacher and the records use is chosen once
+from the model's ``camera``: HMR's weak-perspective crop camera
+(``ops/camera.py:project_to_crop``), or with ``camera = "full_frame"``
+CLIFF's, the crop camera made a full-frame translation and projected in the
+frame (``project_to_full``, in the box's [-1, 1] units); the step's outputs
+then also hold that translation, ``cam_full``.
 
 The current frame, the history frame and the retrieved exemplar run as one
 batch through the backbone.  Update 0 retrieves with the pre-inner features
@@ -77,7 +86,8 @@ from dynaboa_tpu_torch.losses.priors import GMMPrior
 from dynaboa_tpu_torch.metrics.eval import (GenderedSMPL, evaluate_pred,
                                             gt_targets)
 from dynaboa_tpu_torch.models.smpl import smpl_forward
-from dynaboa_tpu_torch.ops.camera import project_to_crop
+from dynaboa_tpu_torch.ops.camera import (cam_crop2full, project_to_crop,
+                                          project_to_full)
 from dynaboa_tpu_torch.tracing import span
 
 
@@ -91,6 +101,9 @@ class Frame(NamedTuple):
     betas: torch.Tensor    # (B, 10) GT shape
     gender: torch.Tensor   # (B,) int: 0 male / 1 female
     mask: Any = None       # (B,) row validity; None means all valid
+    # (B, 5) the person box (cx, cy, b, w, h): centre and size in a frame of
+    # w x h pixels; None for a model that takes no box
+    box: Any = None
 
 
 @dataclass
@@ -104,6 +117,8 @@ class AdaptState:
     hist_j2d: torch.Tensor      # (interval, B, 49, 3)
     step: int
     rng: torch.Generator
+    # (interval, B, 5) the ring's boxes; None for a model that takes no box
+    hist_box: Any = None
     # the captured gradient evaluations, freed with the state
     graphs: GradGraphs = field(default_factory=GradGraphs, init=False,
                                repr=False, compare=False)
@@ -115,6 +130,7 @@ class History(NamedTuple):
     image: torch.Tensor    # (B, H, W, 3), the slot of frame step - interval
     j2d: torch.Tensor      # (B, 49, 3)
     active: torch.Tensor   # 0-d: 1.0 once step > interval, else 0.0
+    box: Any = None        # (B, 5), the slot's boxes; None without boxes
 
 
 class _Level(NamedTuple):
@@ -144,6 +160,16 @@ class BilevelEngine:
         self.img_res = model.img_res
         self.retrieval_tap = model.retrieval_tap
         self.gate_tap = model.gate_tap
+        self.boxed = bool(getattr(model, "box_conditioned", False))
+        camera = getattr(model, "camera", "crop")
+        if camera not in ("crop", "full_frame"):
+            raise ValueError(f"camera={camera!r}, expected 'crop' or "
+                             "'full_frame'")
+        self._project = (self._project_full if camera == "full_frame"
+                         else self._project_crop)
+        if self.boxed and cfg.mixtrain and store.bank.box is None:
+            raise ValueError("a box-conditioned model needs a box per "
+                             "exemplar (ExemplarBank.box)")
         self.prior = prior
         self.smpls = smpls
         self.store = store
@@ -175,10 +201,20 @@ class BilevelEngine:
 
     # -- model wrappers ------------------------------------------------------
 
-    def _forward(self, params: dict, image: torch.Tensor):
-        """NHWC image -> (rotmat, shape, cam, the model's taps); the NCHW
-        view of an NHWC tensor is channels_last, so no copy is made."""
-        return functional_call(self.model, params, (image.permute(0, 3, 1, 2),))
+    def _forward(self, params: dict, image: torch.Tensor, box=None):
+        """NHWC image (and its box rows, for a box-conditioned model) ->
+        (rotmat, shape, cam, the model's taps); the NCHW view of an NHWC
+        tensor is channels_last, so no copy is made."""
+        x = image.permute(0, 3, 1, 2)
+        return functional_call(self.model, params,
+                               (x, box) if self.boxed else (x,))
+
+    def _project_crop(self, cam, s3d, box):
+        return project_to_crop(cam, s3d, img_res=self.img_res)["normed"]
+
+    def _project_full(self, cam, s3d, box):
+        with span("step.camera"):
+            return project_to_full(cam, s3d, box)["normed"]
 
     def _decode(self, rotmat, shape, no_grad: bool = False):
         """SMPL decode; ``no_grad=True`` marks call sites outside gradient
@@ -188,12 +224,12 @@ class BilevelEngine:
         return out.joints, out.vertices
 
     @torch.no_grad()
-    def predict(self, params, image):
-        """Plain inference: image -> dict(rotmat, shape, cam, s3d, verts,
-        s2d, feats)."""
-        rotmat, shape, cam, feats = self._forward(params, image)
+    def predict(self, params, image, box=None):
+        """Plain inference: image (and box rows) -> dict(rotmat, shape,
+        cam, s3d, verts, s2d, feats)."""
+        rotmat, shape, cam, feats = self._forward(params, image, box)
         s3d, verts = self._decode(rotmat, shape, no_grad=True)
-        s2d = project_to_crop(cam, s3d, img_res=self.img_res)["normed"]
+        s2d = self._project(cam, s3d, box)
         return dict(rotmat=rotmat, shape=shape, cam=cam, s3d=s3d,
                     verts=verts, s2d=s2d, feats=feats)
 
@@ -201,16 +237,19 @@ class BilevelEngine:
 
     @torch.no_grad()
     def _teacher_outs(self, teacher_params, frame: Frame):
-        t_rotmat, t_shape, t_cam, _ = self._forward(teacher_params, frame.image)
+        t_rotmat, t_shape, t_cam, _ = self._forward(teacher_params,
+                                                    frame.image, frame.box)
         t_s3d, _ = self._decode(t_rotmat, t_shape)
-        t_s2d = project_to_crop(t_cam, t_s3d, img_res=self.img_res)["normed"]
+        t_s2d = self._project(t_cam, t_s3d, frame.box)
         return (t_rotmat, t_shape, t_s2d, t_s3d)
 
     def _history(self, state: AdaptState) -> History:
         slot = state.step % self.cfg.interval
         return History(state.hist_images[slot], state.hist_j2d[slot],
                        self._motion_switch[int(state.step
-                                               > self.cfg.interval)])
+                                               > self.cfg.interval)],
+                       None if state.hist_box is None
+                       else state.hist_box[slot])
 
     def _partial_level(self, params, frame: Frame, bank, lv: _Level,
                        hist: History | None):
@@ -219,18 +258,24 @@ class BilevelEngine:
         ``lv.motion``, ``bank`` when ``lv.mixtrain``."""
         cfg = self.cfg
         B = frame.image.shape[0]
-        imgs = [frame.image]
+        imgs, boxes = [frame.image], [frame.box]
         if lv.motion:
             imgs.append(hist.image)
+            boxes.append(hist.box)
         n_ex = 0
         if lv.mixtrain:
             imgs.append(bank.images)
+            boxes.append(bank.box)
             n_ex = bank.images.shape[0]
-        x = torch.cat(imgs, dim=0) if len(imgs) > 1 else imgs[0]
 
-        rotmat, shape, cam, feats_all = self._forward(params, x)
+        def cat(xs):
+            return torch.cat(xs, dim=0) if len(xs) > 1 else xs[0]
+
+        x = cat(imgs)
+        box = cat(boxes) if self.boxed else None
+        rotmat, shape, cam, feats_all = self._forward(params, x, box)
         s3d, _ = self._decode(rotmat, shape)
-        s2d = project_to_crop(cam, s3d, img_res=self.img_res)["normed"]
+        s2d = self._project(cam, s3d, box)
 
         fr = slice(0, B)
         hi = slice(B, 2 * B)
@@ -294,10 +339,15 @@ class BilevelEngine:
         """What a captured evaluation is specific to: the level, the
         parameter set (the state's own or the inner-adapted clone), and the
         shape and dtype of each input it reads; None marks one it does not
-        (no row mask, no history, no exemplar rows)."""
+        (no row mask, no history, no exemplar rows).  An input without
+        boxes keys without its ``box`` field, as before the field existed."""
         def spec(x):
-            return None if x is None else tuple(
-                None if t is None else (tuple(t.shape), t.dtype) for t in x)
+            if x is None:
+                return None
+            if x.box is None:
+                x = x[:-1]
+            return tuple(None if t is None else (tuple(t.shape), t.dtype)
+                         for t in x)
         return (level, own_params, spec(frame), spec(hist), spec(bank))
 
     def _grad(self, state: AdaptState, params: dict, frame: Frame, bank,
@@ -423,6 +473,9 @@ class BilevelEngine:
     def _step(self, state: AdaptState, frame: Frame, cos_sim_threshold,
               extra_cap):
         cfg = self.cfg
+        box = frame.box
+        if self.boxed and box is None:
+            raise ValueError("a box-conditioned model needs Frame.box")
         thr = (cfg.cos_sim_threshold if cos_sim_threshold is None
                else float(cos_sim_threshold))
         cap = self._cap(extra_cap)
@@ -440,7 +493,7 @@ class BilevelEngine:
                 probe_image = self._probe_image(frame.image)
                 with torch.no_grad():
                     rotmat0, shape0, cam0, init_feats = self._forward(
-                        state.params, frame.image)
+                        state.params, frame.image, box)
 
             # inner step(s) on the clone; inner step 0 retrieves off the
             # pre-adaptation features
@@ -468,7 +521,7 @@ class BilevelEngine:
                 feat_r = lfeats[rtap][0]
                 if cfg.record_lowerlevel:
                     with span("step.record"):
-                        pred = self.predict(learner, frame.image)
+                        pred = self.predict(learner, frame.image, box)
                         m = self._metrics(pred["verts"], eval_targets)
                         outputs[f"lower_{i}_mpjpe"] = m["mpjpe"]
                         outputs[f"lower_{i}_pampjpe"] = m["pampjpe"]
@@ -488,7 +541,8 @@ class BilevelEngine:
                 pred_c = (rotmat0, shape0, cam0, init_feats)
             else:
                 with span("step.init_forward"), torch.no_grad():
-                    pred_c = self._forward(state.params, probe_image)
+                    pred_c = self._forward(state.params, probe_image,
+                                           box)
             upper_aux: dict = {}
             sim = None
             n = 0
@@ -524,7 +578,8 @@ class BilevelEngine:
                     # post-update forward: the gate signal, and the final
                     # prediction when the loop stops here
                     with span("step.probe"):
-                        post = self._forward(state.params, probe_image)
+                        post = self._forward(state.params, probe_image,
+                                             box)
                         sim = feature_cosine_similarities(
                             (pred_c[3][gtap],), (post[3][gtap],))[0]
                         sims[n] = sim
@@ -552,7 +607,8 @@ class BilevelEngine:
         else:
             # plain single-level online adaptation
             with span("step.init_forward"), torch.no_grad():
-                init_feats0 = self._forward(state.params, frame.image)[3]
+                init_feats0 = self._forward(state.params, frame.image,
+                                            box)[3]
             with span("step.retrieve"):
                 bank = self._retrieve(init_feats0[self.retrieval_tap][0],
                                       state.rng)
@@ -567,7 +623,8 @@ class BilevelEngine:
             if cfg.use_boa:
                 if probe_image is not frame.image:
                     # the probe's outputs are not the prediction
-                    pred_c = self._forward(state.params, frame.image)
+                    pred_c = self._forward(state.params, frame.image,
+                                           box)
                 rotmat_f, shape_f, cam_f, feats_f = pred_c
                 s3d_f, verts_f = self._decode(rotmat_f, shape_f, no_grad=True)
                 pred = dict(rotmat=rotmat_f, shape=shape_f, cam=cam_f,
@@ -575,18 +632,23 @@ class BilevelEngine:
                 outputs["feat_sim"] = feature_cosine_similarities(init_feats,
                                                                   feats_f)
             else:
-                pred = self.predict(state.params, frame.image)
+                pred = self.predict(state.params, frame.image, box)
             outputs.update(self._metrics(pred["verts"], eval_targets))
             outputs["verts"] = pred["verts"]
             outputs["rotmat"] = pred["rotmat"]
             outputs["beta"] = pred["shape"]
             outputs["cam"] = pred["cam"]
+            if self.boxed:
+                with span("step.camera"):
+                    outputs["cam_full"] = cam_crop2full(pred["cam"], box)
 
             # ring-buffer write: the slot held frame step - interval, which
             # the motion loss above consumed
             slot = state.step % cfg.interval
             state.hist_images[slot] = frame.image
             state.hist_j2d[slot] = frame.j2d
+            if state.hist_box is not None:
+                state.hist_box[slot] = box
         state.step += 1
         return state, outputs
 
@@ -597,7 +659,10 @@ class BilevelEngine:
         """Fresh adaptation state from a name -> tensor parameter dict (e.g.
         ``dict(model.named_parameters())``); student and teacher are copies.
         The history ring holds ``img_res`` square frames, by default the
-        model's crop."""
+        model's crop; for a box-conditioned model its empty slots' boxes
+        are the whole of a square frame of that size, (r/2, r/2, r, r, r),
+        so that their rows, masked out of the loss until the ring fills,
+        stay finite."""
         cfg = self.cfg
         img_res = self.img_res if img_res is None else img_res
         student = {k: v.detach().clone().to(self.device).requires_grad_(True)
@@ -615,4 +680,8 @@ class BilevelEngine:
                 device=self.device),
             hist_j2d=torch.zeros((cfg.interval, batch_size, 49, 3),
                                  device=self.device),
-            step=0, rng=rng)
+            step=0, rng=rng,
+            hist_box=torch.tensor(
+                [img_res / 2, img_res / 2, img_res, img_res, img_res],
+                device=self.device).repeat(cfg.interval, batch_size, 1)
+            if self.boxed else None)

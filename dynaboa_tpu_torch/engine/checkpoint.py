@@ -297,7 +297,11 @@ def load_state(path: str, template: AdaptState) -> AdaptState:
         params=params, teacher_params=teacher, optimizer=optimizer,
         hist_images=torch.tensor(hist_images, device=dev),
         hist_j2d=torch.tensor(hist_j2d, device=dev),
-        step=int(step), rng=rng)
+        step=int(step), rng=rng,
+        # the file holds no boxes: a box-conditioned state's ring restarts
+        # with the template's
+        hist_box=None if template.hist_box is None
+        else template.hist_box.clone())
 
 
 # -- asynchronous writes ----------------------------------------------------------

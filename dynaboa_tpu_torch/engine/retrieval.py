@@ -7,7 +7,7 @@ exemplar set stays on the device, so a draw needs no host sync."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -15,16 +15,18 @@ import torch
 
 class ExemplarBank(NamedTuple):
     """Labeled source exemplars; images cropped to the model's square crop
-    (``img_res``: 224 for HMR, 256 for HMR 2.0), NHWC."""
+    (``img_res``: 224 for HMR, 256 for HMR 2.0 and CLIFF), NHWC; for a
+    box-conditioned model (CLIFF) each exemplar's box in its frame."""
 
     images: torch.Tensor     # (M, img_res, img_res, 3)
     keypoints: torch.Tensor  # (M, 49, 3)
     pose: torch.Tensor       # (M, 72)
     betas: torch.Tensor      # (M, 10)
     pose_3d: torch.Tensor    # (M, 24, 4)
+    box: Any = None          # (M, 5) as Frame.box; None without boxes
 
     def take(self, idx) -> "ExemplarBank":
-        return ExemplarBank(*[a[idx] for a in self])
+        return ExemplarBank(*[None if a is None else a[idx] for a in self])
 
 
 class RetrievalStore(NamedTuple):

@@ -14,6 +14,9 @@ Modes, as in the JAX runner:
 - ``auto_reset``: a non-finite loss or metric resets params, teacher and
   optimizer to the initial weights (history, step and rng are kept).
 - raw-frame items (fused preprocessing) are cropped on the engine's device.
+- a box-conditioned model (CLIFF) gets each item's box: its ``bbox``
+  (centre and size) in a frame of ``frame_size`` (width, height) pixels;
+  the saved camera is then the full-frame translation.
 - ``save_overlays`` (``--save_res``): the predicted mesh over the original
   frame in ``image/Pred_<i>.png`` and the mesh in ``mesh/Pred_<i>.obj``, for
   items whose ``imgname`` names an image that exists.
@@ -41,7 +44,7 @@ from dynaboa_tpu_torch.ops.image import fused_crop_resize_normalize
 from dynaboa_tpu_torch.tracing import span
 
 _PER_FRAME_KEYS = ("mpjpe", "pampjpe", "pve", "verts", "rotmat", "beta",
-                   "cam")
+                   "cam", "cam_full")
 _META_KEYS = ("imgname", "bbox")
 
 
@@ -51,10 +54,13 @@ def item_meta(item: dict) -> dict:
 
 
 def frame_from_item(item: dict, device, keypoint_source: str = "gt",
-                    img_res: int = constants.IMG_RES) -> Frame:
+                    img_res: int = constants.IMG_RES,
+                    boxed: bool = False) -> Frame:
     """Lift a dataset item (no batch dim) into a Frame on ``device``.  Items
     with ``raw_image`` are cropped there to their ``out_res``, by default
-    ``img_res``, resized and normalized."""
+    ``img_res``, resized and normalized.  ``boxed``: the Frame carries the
+    item's box, ``(cx, cy, b)`` of its ``bbox`` and ``(w, h)`` of its
+    ``frame_size``."""
     j2d = item["op_j2d"] if keypoint_source == "openpose" else item["smpl_j2d"]
 
     def t(a):
@@ -70,21 +76,30 @@ def frame_from_item(item: dict, device, keypoint_source: str = "gt",
             out_res=int(item.get("out_res", img_res)))[None]
     else:
         image = t(item["image"])
+    box = None
+    if boxed:
+        if "bbox" not in item or "frame_size" not in item:
+            raise KeyError("a box-conditioned model needs each item's "
+                           "'bbox' (cx, cy, b) and 'frame_size' (w, h)")
+        box = t(np.concatenate([np.asarray(item["bbox"], np.float32)[:3],
+                                np.asarray(item["frame_size"], np.float32)]))
     return Frame(
         image=image, j2d=t(j2d), pose=t(item["pose"]), betas=t(item["betas"]),
         gender=torch.tensor([int(item["gender"])], dtype=torch.int32,
                             device=device),
-        mask=torch.ones((1,), dtype=torch.float32, device=device))
+        mask=torch.ones((1,), dtype=torch.float32, device=device), box=box)
 
 
 def frame_from_window(items: list[dict], device, keypoint_source: str = "gt",
-                      img_res: int = constants.IMG_RES) -> Frame:
+                      img_res: int = constants.IMG_RES,
+                      boxed: bool = False) -> Frame:
     """Stack W consecutive frames into one batched Frame (B = W).  The
     history ring then stores whole windows, so the motion loss pairs row i
     of window t with row i of window t - interval."""
-    frames = [frame_from_item(it, device, keypoint_source, img_res)
+    frames = [frame_from_item(it, device, keypoint_source, img_res, boxed)
               for it in items]
-    return Frame(*[torch.cat([getattr(f, k) for f in frames])
+    return Frame(*[None if getattr(frames[0], k) is None
+                   else torch.cat([getattr(f, k) for f in frames])
                    for k in Frame._fields])
 
 
@@ -221,6 +236,7 @@ class StreamRunner:
         n_total = len(stream)
         device = self.engine.device
         res = self.engine.img_res
+        boxed = self.engine.boxed
         prof = self._start_profile(device)
         # (first index, frame, each real row's item_meta)
         pending: list[tuple[int, Frame, list[dict]]] = []
@@ -276,14 +292,15 @@ class StreamRunner:
                     break
                 if window_size == 1:
                     add(i, lambda: frame_from_item(item, device,
-                                                   keypoint_source, res),
+                                                   keypoint_source, res,
+                                                   boxed),
                         [item_meta(item)])
                 else:
                     win_items.append((i, item))
                     if len(win_items) == window_size:
                         items = [it for _, it in win_items]
                         add(win_items[0][0], lambda: frame_from_window(
-                            items, device, keypoint_source, res),
+                            items, device, keypoint_source, res, boxed),
                             [item_meta(it) for it in items])
                         win_items = []
                 if len(pending) >= chunk_size:
@@ -308,7 +325,7 @@ class StreamRunner:
                 def padded():
                     fr = frame_from_window(
                         items + [items[-1]] * (window_size - T), device,
-                        keypoint_source, res)
+                        keypoint_source, res, boxed)
                     mask = torch.zeros((window_size,), dtype=torch.float32,
                                        device=device)
                     mask[:T] = 1.0
@@ -459,11 +476,15 @@ class StreamRunner:
 
         if self.save_predictions:
             # 'cam' is the weak-perspective cam converted to a camera
-            # translation; the raw crop-space cam rides along as 'cam_crop'
+            # translation (a box-conditioned model's: the full-frame one);
+            # the raw crop-space cam rides along as 'cam_crop'
             cam = np.asarray(out["cam"])
-            tz = (2.0 * constants.FOCAL_LENGTH
-                  / (self.engine.img_res * cam[:, 0] + 1e-9))
-            cam_t = np.stack([cam[:, 1], cam[:, 2], tz], axis=-1)
+            if "cam_full" in out:
+                cam_t = np.asarray(out["cam_full"])
+            else:
+                tz = (2.0 * constants.FOCAL_LENGTH
+                      / (self.engine.img_res * cam[:, 0] + 1e-9))
+                cam_t = np.stack([cam[:, 1], cam[:, 2], tz], axis=-1)
             np.savez(osp.join(self.exppath, "result", f"Pred_{i}.npz"),
                      verts=out["verts"], cam=cam_t, cam_crop=cam,
                      rotmat=out["rotmat"], beta=out["beta"])

@@ -64,13 +64,16 @@ class Conv2d32(nn.Conv2d):
     """A convolution that runs in float32 on a card as the Hopper kernel
     ``kernels/conv.py`` (its backward is ATen's), on the CPU as
     ``nnf.conv2d``.  Under autocast it is ``nn.Conv2d`` itself, so the
-    bfloat16 arm's arithmetic is ATen's, as before."""
+    bfloat16 arm's arithmetic is ATen's, as before.  A bias (HMR's
+    convolutions have none; CLIFF's head has four) is added after the
+    convolution."""
 
     def forward(self, x):
         if torch.is_autocast_enabled(x.device.type):
             return super().forward(x)
-        return conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                      self.dilation, self.groups)
+        y = conv2d(x, self.weight, None, self.stride, self.padding,
+                   self.dilation, self.groups)
+        return y if self.bias is None else y + self.bias[:, None, None]
 
 
 def _gn(channels: int) -> nn.GroupNorm:

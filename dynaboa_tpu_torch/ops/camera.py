@@ -1,6 +1,7 @@
 """Camera models on torch tensors: pinhole projection, the HMR
-weak-perspective camera and the batched weighted-least-squares translation
-fit (counterpart of ``dynaboa_tpu/ops/camera.py``)."""
+weak-perspective camera, CLIFF's full-frame camera and the batched
+weighted-least-squares translation fit (counterpart of
+``dynaboa_tpu/ops/camera.py``; the full-frame camera has none there)."""
 
 from __future__ import annotations
 
@@ -65,6 +66,53 @@ def project_to_crop(cam: torch.Tensor, s3d: torch.Tensor, eps: float = 1e-9,
     s2d = perspective_projection(s3d, eye, cam_t, constants.FOCAL_LENGTH,
                                  center)
     return {"ori": s2d, "normed": s2d / (img_res / 2.0)}
+
+
+def cam_crop2full(cam: torch.Tensor, box: torch.Tensor,
+                  eps: float = 1e-9) -> torch.Tensor:
+    """CLIFF's ``cam_crop2full``: the crop camera (s, tx, ty) of a box
+    ``(cx, cy, b, w, h)`` (centre and size in a frame of w x h pixels) ->
+    the camera translation in the full frame, whose focal length is the
+    frame's diagonal f:
+
+      tz = 2 f / (b s),  tx' = tx + 2 (cx - w/2) / (b s),
+      ty' = ty + 2 (cy - h/2) / (b s).
+
+    Args:
+      cam: (B, 3); box: (B, 5).
+    Returns:
+      (B, 3) translations.
+    """
+    cx, cy, b, w, h = box.unbind(-1)
+    f = torch.sqrt(w * w + h * h)
+    bs = b * cam[:, 0] + eps
+    return torch.stack([cam[:, 1] + 2.0 * (cx - w / 2) / bs,
+                        cam[:, 2] + 2.0 * (cy - h / 2) / bs,
+                        2.0 * f / bs], dim=-1)
+
+
+def project_to_full(cam: torch.Tensor, s3d: torch.Tensor, box: torch.Tensor,
+                    eps: float = 1e-9):
+    """CLIFF's full-frame projection of 3D joints: the crop camera made a
+    full-frame translation (``cam_crop2full``), a pinhole of focal f (the
+    frame's diagonal) about the frame's centre.
+
+    Args:
+      cam: (B, 3) as (s, tx, ty); s3d: (B, N, 3); box: (B, 5) as (cx, cy,
+        b, w, h).
+    Returns:
+      dict with 'ori' (B, N, 2) pixels of the full frame and 'normed'
+      (B, N, 2) in the box's [-1, 1] units, (x - c) / (b / 2), as
+      DynaBOA's keypoints are.  With the box at the frame's centre and f
+      large, 'normed' tends to the weak perspective s (X + t).
+    """
+    t = cam_crop2full(cam, box, eps)
+    pts = s3d + t[:, None, :]
+    cx, cy, b, w, h = (v[:, None, None] for v in box.unbind(-1))
+    f = torch.sqrt(w * w + h * h)
+    xy = pts[..., :2] / pts[..., 2:3] * f
+    ori = xy + torch.cat([w, h], -1) / 2
+    return {"ori": ori, "normed": (ori - torch.cat([cx, cy], -1)) / (b / 2)}
 
 
 def estimate_translation(S: torch.Tensor, joints_2d: torch.Tensor,

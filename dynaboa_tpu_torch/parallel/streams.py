@@ -168,7 +168,8 @@ def stack_frames(items: list[dict], device,
     as on the sequential path.  ``ParallelStreams.step`` takes the
     per-stream Frames instead."""
     fs = [frame_from_item(it, device, keypoint_source) for it in items]
-    return Frame(*[torch.stack([getattr(f, k) for f in fs])
+    return Frame(*[None if getattr(fs[0], k) is None
+                   else torch.stack([getattr(f, k) for f in fs])
                    for k in Frame._fields])
 
 

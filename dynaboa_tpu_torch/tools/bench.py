@@ -313,8 +313,9 @@ def measure_windowed(system, frames, label, W=8, n_steps=12):
 
     engine = system.engine
     dev = engine.device
-    win = Frame(*[torch.cat([getattr(frames[i % len(frames)], k)
-                             for i in range(W)])
+    win = Frame(*[None if getattr(frames[0], k) is None
+                  else torch.cat([getattr(frames[i % len(frames)], k)
+                                  for i in range(W)])
                   for k in Frame._fields])
     state = engine.init_state(system.params, batch_size=W)
     t0 = time.perf_counter()

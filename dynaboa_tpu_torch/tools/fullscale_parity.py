@@ -207,10 +207,10 @@ def h36m_regressor(nv: int) -> np.ndarray:
 def exemplar_bank(size: Size, device="cpu"):
     """The store's exemplars: the first N_CLUSTERS of ``synthetic_store``
     seed 6, one per cluster."""
-    from dynaboa_tpu_torch.engine.retrieval import ExemplarBank, synthetic_store
+    from dynaboa_tpu_torch.engine.retrieval import synthetic_store
 
     base = synthetic_store(6, device, img_res=size.img, feat_dim=size.feat)
-    return ExemplarBank(*[a[:N_CLUSTERS] for a in base.bank])
+    return base.bank.take(slice(0, N_CLUSTERS))
 
 
 def cluster_centers(size: Size, weights: dict[str, np.ndarray],

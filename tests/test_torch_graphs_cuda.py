@@ -92,6 +92,8 @@ def _copy_state(dst, src) -> None:
             dst.teacher_params[k].copy_(src.teacher_params[k])
         dst.hist_images.copy_(src.hist_images)
         dst.hist_j2d.copy_(src.hist_j2d)
+        if src.hist_box is not None:
+            dst.hist_box.copy_(src.hist_box)
     dst.optimizer.state.clear()
     for pd, ps in zip(dst.params.values(), src.params.values()):
         if ps in src.optimizer.state:

@@ -73,7 +73,8 @@ def record_arm(arm: str, size: str, n_frames: int, weights: dict,
     bank = fp.exemplar_bank(S)
     store = jeng.retrieval.build_store(
         centers, [[i] for i in range(fp.N_CLUSTERS)],
-        jeng.retrieval.ExemplarBank(*[jnp.asarray(a.numpy()) for a in bank]))
+        jeng.retrieval.ExemplarBank(*[jnp.asarray(a.numpy()) for a in bank
+                                      if a is not None]))
     engine = jeng.BilevelEngine(cfg, model, synthetic_gmm_prior(seed=4),
                                 smpls, store)
     frames = [jeng.Frame(**{k: jnp.asarray(v) for k, v in fr.items()})

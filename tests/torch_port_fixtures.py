@@ -22,8 +22,7 @@ from dynaboa_tpu.models.hmr import HMR as JHMR, init_hmr_params
 from dynaboa_tpu.models.hmr import convert_torch_state_dict
 
 from dynaboa_tpu_torch.engine import bilevel as teng
-from dynaboa_tpu_torch.engine.retrieval import (ExemplarBank as TBank,
-                                                build_store as t_build_store,
+from dynaboa_tpu_torch.engine.retrieval import (build_store as t_build_store,
                                                 synthetic_store as t_store)
 from dynaboa_tpu_torch.losses.priors import synthetic_gmm_prior as t_prior
 from dynaboa_tpu_torch.metrics.eval import GenderedSMPL as TGenderedSMPL
@@ -97,7 +96,7 @@ def singleton_stores(n_clusters: int = 6, img_res: int = IMG):
         size=(n_clusters, XF)).astype(np.float32)
     members = [[i] for i in range(n_clusters)]
     jbank = jeng.retrieval.ExemplarBank(*[a[:n_clusters] for a in jbase.bank])
-    tbank = TBank(*[a[:n_clusters] for a in tbase.bank])
+    tbank = tbase.bank.take(slice(0, n_clusters))
     return (jeng.retrieval.build_store(centers, members, jbank),
             t_build_store(centers, members, tbank))
 
