@@ -31,11 +31,22 @@ Phases, each of which raises (non-zero exit) on failure:
      of one forward summed; and a whole no-grad HMR forward with the kernel
      and with nnf.conv2d in its place, its device time and the host's time
      to enqueue it
+ 2d. the data-gradient kernel (csrc/conv_dgrad.cu) at every convolution
+     shape of one full-width HMR and one CLIFF forward but the first, whose
+     input is the image, N = 1, 2 and 3 (the rows the main path's
+     backwards take: 2 in pw3d's and CLIFF's lower level, the frame and an
+     exemplar): its gradient and layout against a float64 and a float32
+     convolution_backward (dx alone) and the plain version; times hot and
+     cold beside the bound (the FLOPs at 67 TFLOP/s), the plain version and
+     convolution_backward's dx-only call (library_ms); the 52 and 324 calls
+     of one backward summed
   3. the main path: the port's 3DPW benchmark CLI, 8 synthetic frames of
      per-frame dynamic bilevel adaptation at full width (ResNet-50-GN,
      224^2, V = 6890) with the skinning kernel on; the kernel's launch count
      over that run must reach the frame count, the GroupNorm kernel's and
-     the convolution kernel's 53 a frame each
+     the convolution kernel's 53 a frame each, the data-gradient kernel's
+     52 for each gradient evaluation run eagerly or captured, of both
+     levels (replays bypass the counts)
   4. the same CLI at a tiny size on the card and on the CPU from the same
      seed, every update taken: step counts, losses and metrics must agree
   5. the windowed path at full width: 20 frames in windows of 8 (the last
@@ -711,10 +722,150 @@ def conv_phase(torch, dev):
     return worst, rows, totals
 
 
+def dgrad_shapes(torch, dev):
+    """{shape: calls} of the convolutions of one full-width HMR forward and
+    of one CLIFF forward on ``dev``, by hooks, less each model's first
+    convolution (its input is the image, which takes no gradient)."""
+    from dynaboa_tpu_torch.models.cliff import CLIFF
+    from dynaboa_tpu_torch.models.hmr import Conv2d32
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "perfbench", "configs",
+                           "cliff_hr48_3dpw.json")) as f:
+        cliff_model = json.load(f)["model"]
+    out = {"hmr": {}}
+    for shape, _ in conv_shapes(torch, dev)[1:]:
+        out["hmr"][shape] = out["hmr"].get(shape, 0) + 1
+    model = CLIFF(**cliff_model).to(dev).eval()
+    calls = []
+    handles = [m.register_forward_pre_hook(lambda mod, a: calls.append(
+        (tuple(a[0].shape[1:]), mod.out_channels, mod.kernel_size[0],
+         mod.stride[0], mod.padding[0])))
+        for m in model.modules() if isinstance(m, Conv2d32)]
+    with torch.no_grad():
+        model(torch.zeros((1, 256, 256, 3), device=dev).permute(0, 3, 1, 2),
+              torch.tensor([[540.0, 960.0, 1000.0, 1080.0, 1920.0]],
+                           device=dev))
+    for h in handles:
+        h.remove()
+    out["cliff"] = {}
+    for shape in calls[1:]:
+        out["cliff"][shape] = out["cliff"].get(shape, 0) + 1
+    return out
+
+
+def dgrad_phase(torch, dev):
+    """The data-gradient kernel at the backward's shapes of HMR (52 calls)
+    and CLIFF (324), N = 1, 2 and 3, each a plan the main path launches:
+    the gaps to a float64
+    ``convolution_backward``, to its float32 dx-only call and to the plain
+    version, the layout; times hot and cold beside the bound (the FLOPs at
+    67 TFLOP/s), the plain version and the dx-only ``convolution_backward``
+    (library_ms, cuDNN's dgrad); each backward's calls summed."""
+    from dynaboa_tpu_torch.kernels import conv as kc
+
+    models = dgrad_shapes(torch, dev)
+    scrub = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scrub.zero_()
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, worst = [], 0.0
+    with torch.no_grad():
+        for model, count in models.items():
+            print(f"{model}: {sum(count.values())} data gradients a "
+                  f"backward, {len(count)} shapes", flush=True)
+            for n in (1, 2, 3):
+                for shape, calls in count.items():
+                    (C, H, W), K, k, s, p = shape
+                    st, pd = (s, s), (p, p)
+                    P, Q = kc.out_size(H, k, s, p), kc.out_size(W, k, s, p)
+                    x = torch.empty((n, C, H, W), device=dev)
+                    w = torch.randn((K, C, k, k), generator=g, device=dev) * (
+                        2.0 / (k * k * K)) ** 0.5
+                    dy = torch.randn((n, K, P, Q), generator=g, device=dev)
+                    args = ([s, s], [p, p], [1, 1], False, [0, 0], 1,
+                            [True, False, False])
+                    dx = kc.conv2d_dgrad(dy, w, x, st, pd)
+                    ref = torch.ops.aten.convolution_backward(
+                        dy.double(), x.double(), w.double(), None, *args)[0]
+                    lib = torch.ops.aten.convolution_backward(
+                        dy, x, w, None, *args)[0]
+                    plain = kc.conv2d_dgrad_plain(dy, w, x, st, pd)
+                    gaps = [float((dx.double() - r.double()).abs().max()
+                                  / r.double().abs().max())
+                            for r in (ref, lib, plain)]
+                    if not max(gaps) <= CONV_TOL or \
+                            dx.stride() != lib.stride():
+                        raise RuntimeError(f"dgrad {model} N={n} {shape}: "
+                                           f"gaps {gaps} (float64, ATen, "
+                                           f"plain), strides {dx.stride()} "
+                                           f"against {lib.stride()}")
+                    worst = max(worst, gaps[0])
+                    flops = 2 * K * C * k * k * n * P * Q
+                    pl = kc.dgrad_plan(x.shape, w.shape, s, p)
+                    row = dict(model=model, n=n,
+                               shape=[list(shape[0]), *shape[1:]],
+                               calls=calls, flops=flops,
+                               plan=dict(bm=pl.bm, bn=pl.bn, split=pl.split,
+                                         ctas=pl.ctas),
+                               bound_ms=flops / FP32_FLOPS * 1e3,
+                               gap_float64=gaps[0])
+                    fns = {"ms": lambda: kc.conv2d_dgrad(dy, w, x, st, pd),
+                           "plain_ms": lambda: kc.conv2d_dgrad_plain(
+                               dy, w, x, st, pd),
+                           "library_ms": lambda: torch.ops.aten
+                           .convolution_backward(dy, x, w, None, *args)}
+                    for label, fl in (("hot", None), ("cold", flush)):
+                        times = {"ms": [], "plain_ms": [], "library_ms": []}
+                        for key in ("library_ms", "ms", "plain_ms", "ms",
+                                    "library_ms"):
+                            times[key].append(time_cuda(fns[key], iters=40,
+                                                        flush=fl))
+                        sfx = "" if label == "cold" else "_hot"
+                        row.update({f"{k2}{sfx}": min(v)
+                                    for k2, v in times.items()})
+                    row["share_of_bound_hot"] = row["bound_ms"] / row["ms_hot"]
+                    rows.append(row)
+                    print(f"dgrad {model} N={n} {shape} x{calls}: plan "
+                          f"{pl.bm}x{pl.bn} split {pl.split} ({pl.ctas} "
+                          f"CTAs) cold {row['ms'] * 1e3:.2f} us hot "
+                          f"{row['ms_hot'] * 1e3:.2f} us; plain "
+                          f"{row['plain_ms'] * 1e3:.2f} / "
+                          f"{row['plain_ms_hot'] * 1e3:.2f}; cuDNN dgrad "
+                          f"{row['library_ms'] * 1e3:.2f} / "
+                          f"{row['library_ms_hot'] * 1e3:.2f}; bound "
+                          f"{row['bound_ms'] * 1e3:.2f} us, "
+                          f"{100 * row['share_of_bound_hot']:.1f} % of it "
+                          f"hot; gap to float64 {gaps[0]:.2e}", flush=True)
+    totals = {}
+    for model in models:
+        for n in (1, 2, 3):
+            mine = [r for r in rows if r["n"] == n and r["model"] == model]
+            for key in ("ms", "ms_hot", "plain_ms", "plain_ms_hot",
+                        "library_ms", "library_ms_hot", "bound_ms"):
+                totals[f"{key}_{model}_backward_n{n}"] = sum(
+                    r[key] * r["calls"] for r in mine)
+            t = {k: totals[f"{k}_{model}_backward_n{n}"] * 1e3
+                 for k in ("ms", "ms_hot", "library_ms", "library_ms_hot",
+                           "bound_ms")}
+            print(f"dgrad, the {sum(models[model].values())} calls of one "
+                  f"{model} backward at N={n}: kernel cold {t['ms']:.1f} us "
+                  f"hot {t['ms_hot']:.1f} us; cuDNN dgrad cold "
+                  f"{t['library_ms']:.1f} us hot {t['library_ms_hot']:.1f} "
+                  f"us; bound {t['bound_ms']:.1f} us (device time: median "
+                  f"of 40 CUDA-event timings, better of 2 rounds)",
+                  flush=True)
+    torch.cuda.synchronize()
+    return worst, rows, totals
+
+
 def main_path_phase(torch, tmp):
     from dynaboa_tpu_torch.apps import benchmark
     from dynaboa_tpu_torch.kernels import lbs as klbs
 
+    from dynaboa_tpu_torch.engine import bilevel
     from dynaboa_tpu_torch.kernels import conv as kc
     from dynaboa_tpu_torch.kernels import group_norm as kgn
 
@@ -722,15 +873,25 @@ def main_path_phase(torch, tmp):
     klbs.skin.launches = 0
     kgn.group_norm.launches = 0
     kc.conv2d.launches = 0
+    kc.conv2d_dgrad.launches = 0
+    # every engine's gradient evaluations by how they ran, from the
+    # counters it makes
+    stats, new_stats = [], bilevel.new_stats
+    bilevel.new_stats = lambda: stats.append(new_stats()) or stats[-1]
     t0 = time.perf_counter()
-    summary = benchmark.main([
-        "--device", "cuda", "--synthetic", str(N_FRAMES),
-        "--use_pallas_lbs", "1", "--expdir", expdir, "--expname", "smoke"])
+    try:
+        summary = benchmark.main([
+            "--device", "cuda", "--synthetic", str(N_FRAMES),
+            "--use_pallas_lbs", "1", "--expdir", expdir, "--expname",
+            "smoke"])
+    finally:
+        bilevel.new_stats = new_stats
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = klbs.skin.launches
     gn_launches = kgn.group_norm.launches
     conv_launches = kc.conv2d.launches
+    dgrad_launches = kc.conv2d_dgrad.launches
 
     run = os.path.join(expdir, "smoke")
     for f in ("res.txt", "scalars.jsonl"):
@@ -752,15 +913,25 @@ def main_path_phase(torch, tmp):
     if conv_launches < 53 * N_FRAMES:
         raise RuntimeError(f"convolution kernel launched {conv_launches} "
                            f"times over {N_FRAMES} frames")
+    # each evaluation backpropagates through the 52 convolutions whose
+    # input is not the image; a graph's replays launch through no wrapper
+    evals = sum(st["eager"] + st["captures"] for st in stats)
+    if evals < 2 or dgrad_launches < 52 * evals:
+        raise RuntimeError(f"data-gradient kernel launched {dgrad_launches} "
+                           f"times over {N_FRAMES} frames, {evals} gradient "
+                           f"evaluations run eagerly or captured")
     print(f"main path: {N_FRAMES} frames in {wall:.1f} s (first frame "
           f"{summary['first_frame_s']:.2f} s), steady {summary['fps']:.3f} "
           f"frames/s; per-frame extra steps {summary['optim_steps']}; "
           f"MPJPE {summary['mpjpe']:.2f} PA-MPJPE {summary['pampjpe']:.2f} "
           f"PVE {summary['pve']:.2f}; kernel launches {launches}; "
           f"GroupNorm kernel launches {gn_launches}, convolution kernel "
-          f"launches {conv_launches} (eager and captured calls)", flush=True)
+          f"launches {conv_launches}, data-gradient kernel launches "
+          f"{dgrad_launches} over {evals} eager and captured gradient "
+          f"evaluations", flush=True)
     summary["group_norm_launches"] = gn_launches
     summary["conv_launches"] = conv_launches
+    summary["dgrad_launches"] = dgrad_launches
     return launches, summary
 
 
@@ -2159,13 +2330,14 @@ def main() -> int:
 
     from dynaboa_tpu_torch.kernels import conv as kc
 
-    built_conv = kc.library(0)
-    print(f"built {built_conv.path} in {built_conv.seconds:.1f} s",
-          flush=True)
-    print("\n".join(line for line in built_conv.ptxas_log.splitlines()
-                    if any(w in line for w in ("Compiling", "registers",
-                                               "smem", "spill"))),
-          flush=True)
+    for name in ("conv_fprop", "conv_dgrad"):
+        built_conv = kc.library(0, name)
+        print(f"built {built_conv.path} in {built_conv.seconds:.1f} s",
+              flush=True)
+        print("\n".join(line for line in built_conv.ptxas_log.splitlines()
+                        if any(w in line for w in ("Compiling", "registers",
+                                                   "smem", "spill"))),
+              flush=True)
 
     phase("2 kernel vs plain, V=6890")
     max_err, times, geometries = kernel_phase(torch, dev)
@@ -2173,6 +2345,8 @@ def main() -> int:
     gn_err, gn_rows, gn_totals = group_norm_phase(torch, dev)
     phase("2c convolution kernel vs ATen and plain, ResNet-50 shapes")
     conv_err, conv_rows, conv_totals = conv_phase(torch, dev)
+    phase("2d data-gradient kernel vs ATen and plain, HMR and CLIFF shapes")
+    dgrad_err, dgrad_rows, dgrad_totals = dgrad_phase(torch, dev)
 
     phase(f"3 main path, {N_FRAMES} frames at full width")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2180,6 +2354,7 @@ def main() -> int:
         launches, main_summary = main_path_phase(torch, tmp)
         gn_launches = main_summary["group_norm_launches"]
         conv_launches = main_summary["conv_launches"]
+        dgrad_launches = main_summary["dgrad_launches"]
         phase("4 tiny CLI run, cuda vs cpu")
         cross_device_phase(tmp)
         phase(f"5 windowed path, W={WINDOW}, full width")
@@ -2252,6 +2427,13 @@ def main() -> int:
         "replaces": None, "launches": conv_launches,
         "max_rel_err": conv_err, "library_call": "nnf.conv2d",
         "bound_by": "operations", "shapes": conv_rows, **conv_totals,
+    }, {
+        "name": "conv_dgrad", "route": "cuda",
+        "source": "dynaboa_tpu_torch/csrc/conv_dgrad.cu",
+        "replaces": None, "launches": dgrad_launches,
+        "max_rel_err": dgrad_err,
+        "library_call": "torch.ops.aten.convolution_backward, dx alone",
+        "bound_by": "operations", "shapes": dgrad_rows, **dgrad_totals,
     }]
     print(info)
     print(json.dumps({"offline": offline}))

@@ -64,13 +64,9 @@
 
 #include <cstdint>
 
-namespace {
+#include "conv_common.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kBK = 16;                     // depth of a reduction step
-constexpr int kStages = 4;
-constexpr int kMaxCluster = 16;
-constexpr int kMaxSmemBytes = 160 * 1024;
+namespace {
 
 struct ConvArgs {
   const float* x;
@@ -89,55 +85,6 @@ struct ConvArgs {
   int vec_b;            // 16-byte loads of x's pixels (1x1, stride 1, rows
                         // contiguous, P * Q % 4 == 0, 16-byte aligned)
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  // 4 bytes, or a zero when !ok (src-size 0 reads nothing)
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The float4 at `p` in the shared memory of the cluster's CTA `rank`.
-__device__ __forceinline__ float4 load_cluster4(const float* p, int rank) {
-  const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  uint32_t remote;
-  float4 v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(local), "r"(rank));
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
 
 // Output channel m, columns col .. col + 3 (column = n * P * Q + pixel).
 __device__ __forceinline__ void store_nchw(const ConvArgs& a, int m, int col,
@@ -432,20 +379,6 @@ __global__ void __launch_bounds__(kThreads, 3)
   cluster_arrive();
   cluster_wait();
 }
-
-struct DeviceGuard {
-  int prev = -1;
-  cudaError_t err = cudaSuccess;
-  explicit DeviceGuard(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceGuard() {
-    int now = -1;
-    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev)
-      cudaSetDevice(prev);
-  }
-};
 
 template <int BM, int BN, bool kOneByOne>
 cudaError_t set_attributes() {

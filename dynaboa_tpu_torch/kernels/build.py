@@ -4,8 +4,9 @@ them with ctypes.
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>-<hash>.so``; the host library of ``csrc/native/*.cpp``
 compiles with the host C++ compiler (``$CXX``, default ``g++``) and the
-flags of ``native/Makefile`` less OpenMP.  The hash covers the sources and
-the flags, so an edited source rebuilds.  The build happens at first use,
+flags of ``native/Makefile`` less OpenMP.  The hash covers the sources
+(with the CUDA headers ``csrc/*.cuh``) and the flags, so an edited source
+rebuilds.  The build happens at first use,
 never at import; the directory is listed in ``.gitignore``.  A failed
 build raises.
 """
@@ -13,6 +14,7 @@ build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import platform
@@ -62,12 +64,14 @@ def find_cxx() -> str:
 
 
 def _compile(name: str, sources: list[str], head: list[str],
-             tail: tuple[str, ...] = (), key: str = "") -> BuiltLibrary:
+             tail: tuple[str, ...] = (), key: str = "",
+             headers: tuple[str, ...] = ()) -> BuiltLibrary:
     """Run ``head + sources + tail -o out`` unless ``out``, named by the
-    hash of the sources, the flags and ``key``, exists; then load it."""
+    hash of the sources, the ``headers`` they include, the flags and
+    ``key``, exists; then load it."""
     digest = hashlib.sha256(
         (" ".join(head[1:] + list(tail)) + key).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         with open(src, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
@@ -90,9 +94,12 @@ def _compile(name: str, sources: list[str], head: list[str],
 
 
 def build(name: str) -> BuiltLibrary:
-    """Compile ``csrc/<name>.cu`` with nvcc (if needed) and load it."""
+    """Compile ``csrc/<name>.cu`` with nvcc (if needed) and load it; the
+    hash also covers the headers beside it (``csrc/*.cuh``)."""
     return _compile(name, [os.path.join(CSRC, f"{name}.cu")],
-                    [find_nvcc(), *NVCC_FLAGS])
+                    [find_nvcc(), *NVCC_FLAGS],
+                    headers=tuple(sorted(glob.glob(os.path.join(CSRC,
+                                                                "*.cuh")))))
 
 
 def build_host(name: str, sources: list[str]) -> BuiltLibrary:

@@ -24,8 +24,8 @@ crop's middle three quarters of columns (256x192 at the published 256):
   the next, a 1x1 convolution (with bias) to 2048 and a global average
   pool: the 2048-d feature.
 
-Every convolution is HMR's ``Conv2d32`` (on a card the Hopper kernel
-``kernels/conv.py``) and every normalisation HMR's ``GroupNorm32`` (4
+Every convolution is HMR's ``Conv2d32`` (on a card the Hopper kernels of
+``kernels/conv.py``, forward and data gradient) and every normalisation HMR's ``GroupNorm32`` (4
 groups, eps 1e-5; on a card ``kernels/group_norm.py``) in place of the
 published BatchNorm: DynaBOA adapts at batches of one to three unrelated
 rows, where batch statistics mean nothing, and so swaps ResNet-50's

@@ -23,9 +23,9 @@ through ``layer4``) under ``torch.autocast`` in bfloat16, as the JAX model's
 and everything after it float32.  The regressor runs outside autocast, in
 float32 like the JAX model's ``nn.Dense`` layers; parameters, gradients and
 every update stay float32.  On a card the float32 convolutions
-(``Conv2d32``) run as the Hopper kernel ``kernels/conv.py`` and the
-GroupNorms as ``kernels/group_norm.py``; under autocast the convolutions
-stay ATen's.
+(``Conv2d32``) and their data gradients run as the Hopper kernels of
+``kernels/conv.py`` and the GroupNorms as ``kernels/group_norm.py``; under
+autocast the convolutions stay ATen's.
 
 ``HMRISO`` is the dual-head variant with a BatchNorm backbone (fp32 only);
 ``iso_params_from_jax`` carries the JAX package's HMRISO variables across.
@@ -61,12 +61,12 @@ class GroupNorm32(nn.GroupNorm):
 
 
 class Conv2d32(nn.Conv2d):
-    """A convolution that runs in float32 on a card as the Hopper kernel
-    ``kernels/conv.py`` (its backward is ATen's), on the CPU as
-    ``nnf.conv2d``.  Under autocast it is ``nn.Conv2d`` itself, so the
-    bfloat16 arm's arithmetic is ATen's, as before.  A bias (HMR's
-    convolutions have none; CLIFF's head has four) is added after the
-    convolution."""
+    """A convolution that runs in float32 on a card as the Hopper kernels
+    of ``kernels/conv.py`` (forward and data gradient; the weight's
+    gradient is ATen's), on the CPU as ``nnf.conv2d``.  Under autocast it
+    is ``nn.Conv2d`` itself, so the bfloat16 arm's arithmetic is ATen's, as
+    before.  A bias (HMR's convolutions have none; CLIFF's head has four)
+    is added after the convolution."""
 
     def forward(self, x):
         if torch.is_autocast_enabled(x.device.type):

@@ -731,8 +731,10 @@ def test_benchmark_entries_of_this_configuration():
     names = ("step.mfu.cliff", "device.idle_share.cliff",
              "cliff.model_idle_ms", "conv_fprop_roofline.cliff",
              "group_norm_roofline.cliff")
-    assert tuple(m["name"] for m in bench["per_layer"][-5:]) == names
-    for m in bench["per_layer"][-5:]:
+    listed = [m["name"] for m in bench["per_layer"]]
+    start = listed.index(names[0])
+    assert tuple(listed[start:start + 5]) == names
+    for m in bench["per_layer"][start:start + 5]:
         assert m["workloads"] == ["cliff.geo_updates"]
         assert m["moves"] == "device_ms_per_frame"
     with open(os.path.join(ROOT, "perfbench", "traffic",

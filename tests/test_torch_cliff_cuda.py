@@ -1,7 +1,8 @@
-"""CLIFF on a card: the two Hopper kernels at every convolution and
+"""CLIFF on a card: the three Hopper kernels at every convolution and
 GroupNorm shape of its HRNet-W48 trunk at 256x192 and N = 1, 2, 3 against
 ATen with TF32 off (the tolerances of ``test_torch_conv_cuda.py`` and
-``test_torch_group_norm_cuda.py``), the launches of one forward, and CLIFF
+``test_torch_group_norm_cuda.py``; the data gradient against float64), the
+launches of one forward and one backward, and CLIFF
 at the published widths through ``BilevelEngine.step``: the CUDA graphs of
 its gradient evaluations against the same engine run eagerly, over 8
 frames at the per-frame caps of the benchmark's traced segment (0, 7, 0, 6,
@@ -25,10 +26,12 @@ import torch
 import torch.nn.functional as nnf
 
 from test_torch_conv_cuda import FWD_TOL as CONV_TOL
+from test_torch_conv_cuda import check_dgrad, dgrad_inputs
 from test_torch_graphs_cuda import TOL, WARM_FRAMES, eager_twin, run_pair
 from test_torch_group_norm_cuda import FWD_TOL as GN_TOL
 from test_torch_group_norm_cuda import GRAD_TOL as GN_GRAD_TOL
 from test_torch_group_norm_cuda import STAT_TOL
+from torch_conv_shapes import HRNET_SHAPES as CONV_SHAPES
 
 from dynaboa_tpu_torch.engine.bilevel import Frame
 from dynaboa_tpu_torch.kernels import conv as kc
@@ -37,34 +40,7 @@ from dynaboa_tpu_torch.kernels import group_norm as kgn
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 8
 GROUPS = 4
-# ((C, H, W), K, kernel, stride, padding) of CLIFF's convolutions at 256x192
-# in the order of their first call: the 47 shapes of the 325 calls
-CONV_SHAPES = (
-    ((3, 256, 192), 64, 3, 2, 1), ((64, 128, 96), 64, 3, 2, 1),
-    ((64, 64, 48), 64, 1, 1, 0), ((64, 64, 48), 64, 3, 1, 1),
-    ((64, 64, 48), 256, 1, 1, 0), ((256, 64, 48), 64, 1, 1, 0),
-    ((256, 64, 48), 48, 3, 1, 1), ((256, 64, 48), 96, 3, 2, 1),
-    ((48, 64, 48), 48, 3, 1, 1), ((96, 32, 24), 96, 3, 1, 1),
-    ((96, 32, 24), 48, 1, 1, 0), ((48, 64, 48), 96, 3, 2, 1),
-    ((96, 32, 24), 192, 3, 2, 1), ((192, 16, 12), 192, 3, 1, 1),
-    ((192, 16, 12), 48, 1, 1, 0), ((192, 16, 12), 96, 1, 1, 0),
-    ((48, 64, 48), 48, 3, 2, 1), ((48, 32, 24), 192, 3, 2, 1),
-    ((192, 16, 12), 384, 3, 2, 1), ((384, 8, 6), 384, 3, 1, 1),
-    ((384, 8, 6), 48, 1, 1, 0), ((384, 8, 6), 96, 1, 1, 0),
-    ((384, 8, 6), 192, 1, 1, 0), ((48, 32, 24), 48, 3, 2, 1),
-    ((48, 16, 12), 384, 3, 2, 1), ((96, 32, 24), 96, 3, 2, 1),
-    ((96, 16, 12), 384, 3, 2, 1), ((48, 64, 48), 32, 1, 1, 0),
-    ((32, 64, 48), 32, 3, 1, 1), ((32, 64, 48), 128, 1, 1, 0),
-    ((48, 64, 48), 128, 1, 1, 0), ((96, 32, 24), 64, 1, 1, 0),
-    ((64, 32, 24), 64, 3, 1, 1), ((64, 32, 24), 256, 1, 1, 0),
-    ((96, 32, 24), 256, 1, 1, 0), ((128, 64, 48), 256, 3, 2, 1),
-    ((192, 16, 12), 128, 1, 1, 0), ((128, 16, 12), 128, 3, 1, 1),
-    ((128, 16, 12), 512, 1, 1, 0), ((192, 16, 12), 512, 1, 1, 0),
-    ((256, 32, 24), 512, 3, 2, 1), ((384, 8, 6), 256, 1, 1, 0),
-    ((256, 8, 6), 256, 3, 1, 1), ((256, 8, 6), 1024, 1, 1, 0),
-    ((384, 8, 6), 1024, 1, 1, 0), ((512, 16, 12), 1024, 3, 2, 1),
-    ((1024, 8, 6), 2048, 1, 1, 0))
-# (C, H, W) of its GroupNorms: the 22 shapes of the 325 calls
+# (C, H, W) of CLIFF's GroupNorms: the 22 shapes of the 325 calls
 GN_SHAPES = (
     (64, 128, 96), (64, 64, 48), (256, 64, 48), (48, 64, 48), (96, 32, 24),
     (48, 32, 24), (192, 16, 12), (48, 16, 12), (96, 16, 12), (384, 8, 6),
@@ -104,6 +80,18 @@ def test_conv_kernel_matches_aten(cuda_device, shape, n):
     torch.cuda.synchronize()
     assert y.shape == ref.shape and y.stride() == ref.stride()
     assert _gap(y, ref) <= CONV_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("shape", CONV_SHAPES[1:])
+def test_dgrad_kernel_matches_float64(cuda_device, shape, n):
+    """The data gradient at every shape but the stem's first (whose input
+    is the image), within ``DGRAD_TOL`` of a float64
+    ``convolution_backward``, in ATen's layout, and the same bits twice."""
+    _, _, _, s, p = shape
+    check_dgrad(*dgrad_inputs(n, shape, cuda_device,
+                              seed=sum(shape[0]) + shape[1] + n), s, p)
 
 
 @pytest.mark.cuda
@@ -159,7 +147,7 @@ def _config():
 @pytest.mark.cuda
 def test_launches_per_cliff_forward(cuda_device):
     """325 convolution and 325 GroupNorm kernel launches a forward, with
-    and without gradients, and the shapes of this file's tests."""
+    and without gradients, and 324 data-gradient launches a backward."""
     from dynaboa_tpu_torch.models.cliff import CLIFF
 
     model = CLIFF(**_config()["model"]).to(cuda_device).eval()
@@ -172,6 +160,13 @@ def test_launches_per_cliff_forward(cuda_device):
             model(x, box)
         assert kc.conv2d.launches - conv0 == 325
         assert kgn.group_norm.launches - gn0 == 325
+    # the backward: a data gradient for every convolution but the stem's
+    # first, whose input (the crop) needs none
+    dgrad0 = kc.conv2d_dgrad.launches
+    out = model(x, box)
+    torch.autograd.grad(sum(t.float().square().mean() for t in out[:3]),
+                        list(model.parameters()), allow_unused=True)
+    assert kc.conv2d_dgrad.launches - dgrad0 == 324
 
 
 @pytest.fixture(scope="module")

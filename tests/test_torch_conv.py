@@ -1,11 +1,14 @@
 """The convolution wrapper ``kernels/conv.py`` and HMR's ``Conv2d32`` on the
 CPU: a CPU tensor takes ``nnf.conv2d`` bit for bit, forward and backward,
-and launches nothing; the plain version against ATen's convolution at every
-convolution shape of ResNet-50; the autograd Function's backward wiring
-with the plain version standing in for the kernel; the launcher's plan at
-every shape; the bfloat16 arm staying on ATen's convolution; the parameter
-names; and the benchmark's count of convolution FLOPs and image rows.  The
-kernel itself runs in ``tests/test_torch_conv_cuda.py`` on a card."""
+and launches nothing; the plain versions of the forward and of the data
+gradient against ATen's at every convolution shape of ResNet-50 (and the
+data gradient's at HRNet-W48's, its phase split and zeroed pixels at
+ragged sizes); the autograd Function's backward wiring with the plain
+versions standing in for the kernels; the launchers' plans at every shape;
+the bfloat16 arm staying on ATen's convolution; the parameter names; and
+the benchmark's counts of convolution FLOPs, data-gradient FLOPs and image
+rows.  The kernels themselves run in ``tests/test_torch_conv_cuda.py`` on a
+card."""
 
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as nnf
 
 import torch_port_fixtures  # noqa: F401  (shares the cores among workers)
-from test_torch_conv_cuda import SHAPES
+from torch_conv_shapes import HRNET_SHAPES as CONV_SHAPES
+from torch_conv_shapes import RESNET50_SHAPES as SHAPES
 
 from dynaboa_tpu_torch.kernels import conv as kc
 from dynaboa_tpu_torch.models import hmr as mhmr
@@ -101,25 +105,145 @@ def test_plain_keeps_a_channels_last_layout():
 
 
 def test_function_backward_is_atens(monkeypatch):
-    """``Conv2dFunction`` with the plain version standing in for the
-    kernel: its gradients are ATen's convolution backward on the saved
-    input and weight, bit for bit, with and without the input's."""
+    """``Conv2dFunction`` with the plain versions standing in for the
+    kernels: the input's gradient is one data-gradient launch (the plain
+    version's result, bit for bit, within ``PLAIN_TOL`` of ATen's); the
+    weight's is ATen's ``convolution_backward`` on the saved input and
+    weight asked for with the mask ``[False, True, False]``, bit for bit;
+    an input without grad launches nothing."""
     monkeypatch.setattr(kc, "launch",
                         lambda x, w, stride, padding:
                         kc.conv2d_plain(x, w, stride, padding))
+    monkeypatch.setattr(kc, "dgrad_launch",
+                        lambda dy, w, x, stride, padding:
+                        kc.conv2d_dgrad_plain(dy, w, x, stride, padding))
+    masks = []
+    aten_backward = torch.ops.aten.convolution_backward
+
+    def backward(*args):
+        masks.append(list(args[-1]))
+        return aten_backward(*args)
+
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward", backward)
     shape = ((16, 9, 9), 8, 3, 2, 1)
     x, w = _inputs(2, shape, seed=4, grad=True)
     y = kc.Conv2dFunction.apply(x, w, (2, 2), (1, 1))
     dy = torch.randn_like(y)
-    got = torch.autograd.grad(y, (x, w), dy)
-    want = torch.autograd.grad(nnf.conv2d(x, w, None, 2, 1), (x, w), dy)
-    for a, e in zip(got, want):
-        assert torch.equal(a, e)
+    before = kc.conv2d_dgrad.launches
+    got_x, got_w = torch.autograd.grad(y, (x, w), dy)
+    assert kc.conv2d_dgrad.launches == before + 1
+    assert masks == [[False, True, False]]
+    want_x, want_w = torch.autograd.grad(nnf.conv2d(x, w, None, 2, 1),
+                                         (x, w), dy)
+    assert torch.equal(got_w, want_w)
+    assert torch.equal(got_x, kc.conv2d_dgrad_plain(dy, w, x, (2, 2),
+                                                    (1, 1)))
+    assert got_x.stride() == want_x.stride()
+    assert _gap(got_x, want_x) <= PLAIN_TOL
     x0 = x.detach()
     y = kc.Conv2dFunction.apply(x0, w, (2, 2), (1, 1))
     got_w, = torch.autograd.grad(y, (w,), dy)
+    assert kc.conv2d_dgrad.launches == before + 1
     assert torch.equal(got_w, torch.autograd.grad(
         nnf.conv2d(x0, w, None, 2, 1), (w,), dy)[0])
+    # an input that needs a gradient under a weight that does not: the data
+    # gradient alone, and no call of ATen's backward
+    masks.clear()
+    y = kc.Conv2dFunction.apply(x, w.detach(), (2, 2), (1, 1))
+    got_x, = torch.autograd.grad(y, (x,), dy)
+    assert kc.conv2d_dgrad.launches == before + 2 and masks == []
+    assert torch.equal(got_x, kc.conv2d_dgrad_plain(dy, w.detach(), x,
+                                                    (2, 2), (1, 1)))
+
+
+# every data-gradient shape of ResNet-50 and HRNet-W48: each convolution
+# but the first, whose input is the image and takes no gradient
+DGRAD_SHAPES = tuple(dict.fromkeys(SHAPES[1:] + CONV_SHAPES[1:]))
+# (C, H, W, K, kernel, stride, padding) off the models' shapes: ragged
+# channel counts and odd sizes, for the phase split of each stride and
+# kernel the models use (and conv1's 7x7), the pixels no tap reaches (1x1,
+# stride 2) and the taps that fall beyond dy's edge
+DGRAD_CASES = ((5, 9, 7, 6, 1, 1, 0), (5, 9, 7, 6, 1, 2, 0),
+               (7, 8, 6, 70, 1, 2, 0), (7, 9, 11, 5, 3, 1, 1),
+               (7, 9, 11, 5, 3, 2, 1), (6, 8, 10, 5, 3, 2, 1),
+               (130, 5, 3, 9, 3, 2, 1), (3, 10, 10, 4, 7, 2, 3))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("case", DGRAD_CASES)
+def test_dgrad_plain_matches_aten_at_ragged_sizes(case, n):
+    """The data-gradient kernel's arithmetic (each phase's taps, the plan's
+    shares in rank order) against ``torch.nn.grad.conv2d_input``, in both
+    of the input's layouts; the pixels no tap reaches are zeros."""
+    C, H, W, K, k, s, p = case
+    g = torch.Generator().manual_seed(sum(case) + n)
+    w = torch.randn((K, C, k, k), generator=g)
+    P, Q = kc.out_size(H, k, s, p), kc.out_size(W, k, s, p)
+    dy = torch.randn((n, K, P, Q), generator=g)
+    want = torch.nn.grad.conv2d_input((n, C, H, W), w, dy, s, p)
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        x = torch.empty((n, C, H, W)).contiguous(memory_format=fmt)
+        got = kc.conv2d_dgrad_plain(dy, w, x, (s, s), (p, p))
+        assert got.shape == want.shape
+        assert got.is_contiguous(memory_format=fmt)
+        assert _gap(got, want) <= PLAIN_TOL
+    if k == 1 and s == 2:
+        assert not got[:, :, 1::2].any() and not got[:, :, :, 1::2].any()
+    # the phases cover every pixel once and every tap once
+    phs = kc.phases(H, W, k, k, s, p)
+    assert sum(ph.hz * ph.wz for ph in phs) == H * W
+    assert sorted((r, t) for ph in phs for r in ph.rs for t in ph.ss
+                  if ph.hz and ph.wz) == [(r, t) for r in range(k)
+                                          for t in range(k)]
+
+
+def _dgrad_plan_checks(shape, n):
+    (C, H, W), K, k, s, p = shape
+    pl = kc.dgrad_plan((n, C, H, W), (K, C, k, k), s, p)
+    live = [ph for ph in kc.phases(H, W, k, k, s, p) if ph.rs and ph.ss]
+    kred = K * (-(-k // s)) ** 2
+    assert (pl.bm, pl.bn) in kc.TILES
+    assert pl.split in (1, 2, 4, 8, 16)
+    assert pl.split <= -(-kred // kc.BK)     # every CTA has a share
+    assert pl.smem <= kc.MAX_SMEM < 227 * 1024
+    ncol = n * -(-H // s) * -(-W // s)
+    assert pl.tiles == len(live) * -(-C // pl.bm) * -(-ncol // pl.bn)
+    assert (pl.ctas >= kc.TARGET_CTAS or pl.split == kc.MAX_CLUSTER
+            or -(-kred // kc.BK) // (2 * pl.split) < kc.MIN_STEPS)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("shape", DGRAD_SHAPES)
+def test_dgrad_plain_and_plan_at_every_shape(shape, n):
+    """At every data-gradient shape of ResNet-50 and HRNet-W48 (every
+    convolution but the first, whose input is the image): the plain version
+    against ATen's data gradient within ``PLAIN_TOL``, and a plan within the
+    kernel's shared memory."""
+    (C, H, W), K, k, s, p = shape
+    g = torch.Generator().manual_seed(sum(shape[0]) + K + n)
+    w = torch.randn((K, C, k, k), generator=g) * (2.0 / (k * k * K)) ** 0.5
+    dy = torch.randn((n, K, kc.out_size(H, k, s, p), kc.out_size(W, k, s, p)),
+                     generator=g)
+    x = torch.empty((n, C, H, W))
+    got = kc.conv2d_dgrad_plain(dy, w, x, (s, s), (p, p))
+    want = torch.nn.grad.conv2d_input(x.shape, w, dy, s, p)
+    assert got.stride() == want.stride()
+    assert _gap(got, want) <= PLAIN_TOL
+    _dgrad_plan_checks(shape, n)
+
+
+def test_dgrad_shapes_are_every_convolution_but_the_first():
+    assert DGRAD_SHAPES == tuple(dict.fromkeys(SHAPES[1:] + CONV_SHAPES[1:]))
+    assert all(shape[0][0] != 3 for shape in DGRAD_SHAPES)
+
+
+def test_dgrad_refuses_the_cpu():
+    """The data gradient has no CPU path: the CPU's convolutions are
+    ATen's, so only the card's backward reaches it."""
+    x = torch.zeros((1, 4, 8, 8))
+    with pytest.raises(ValueError):
+        kc.conv2d_dgrad(torch.zeros((1, 4, 8, 8)), torch.zeros((4, 4, 1, 1)),
+                        x)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3])
@@ -299,3 +423,87 @@ def test_reader_reads_the_kernels_time():
                 "false>(ConvArgs)"]
     assert reader.read(r, cfg) is None
     assert reader.read({"trace": None}, cfg) is None
+
+
+def _dgrad_reader(cell="engine"):
+    return found.module("metrics", f"conv_dgrad_roofline.{cell}", ROOT)
+
+
+def _config(name):
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           f"{name}.json")) as f:
+        return json.load(f)
+
+
+def test_dgrad_readers_count_every_convolution_but_the_first():
+    """``conv_dgrad_roofline``'s numerators: a data gradient takes its
+    convolution's FLOPs, for every convolution whose input is not the
+    image: HMR's 52 (by hooks on a full-width forward, conv1's 236,027,904
+    left out) and CLIFF's 324 (33,846,755,328 less the stem's first,
+    42,467,328), counted from the configurations alone."""
+    from perfbench.harness import cliff
+
+    model = HMR()
+    flops = []
+
+    def hook(mod, args, out):
+        K, C, R, S = mod.weight.shape
+        flops.append(2 * K * C * R * S * out.shape[2] * out.shape[3])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Conv2d32)]
+    with torch.no_grad():
+        model(torch.zeros((1, 3, 224, 224)))
+    for h in handles:
+        h.remove()
+    assert flops[0] == 236_027_904 and sum(flops[1:]) == 7_938_244_608
+    hmr = _config("dynaboa_3dpw")["model"]
+    assert _dgrad_reader().dgrad_flops_per_row(hmr) == 7_938_244_608
+    cl = _config("cliff_hr48_3dpw")["model"]
+    assert _dgrad_reader("cliff").dgrad_flops_per_row(cl) == 33_804_288_000
+    assert cliff.conv_flops(cl) - 42_467_328 == 33_804_288_000
+
+
+@pytest.mark.parametrize("config", ["dynaboa_3dpw", "cliff_hr48_3dpw",
+                                    "dynaboa_webcam"])
+def test_dgrad_reader_rows_are_the_gradient_evaluations(config):
+    """The gradient rows a frame: the lower evaluation's rows once and the
+    upper's per update, 2 + 3 n in 3DPW's protocol (the frame and an
+    exemplar below; the frame, its history row and an exemplar above) and
+    1 + 2 n in the webcam's (no exemplars)."""
+    adapt = _config(config)["adapt"]
+    per = (1, 2) if config == "dynaboa_webcam" else (2, 3)
+    for n in range(0, 9):
+        assert _dgrad_reader().grad_rows_per_frame(adapt, n) == \
+            per[0] + per[1] * n
+    updates = [1, 8, 1, 7, 2, 4, 2, 4]
+    if config != "dynaboa_webcam":
+        assert sum(_dgrad_reader().grad_rows_per_frame(adapt, n)
+                   for n in updates) == 103
+
+
+@pytest.mark.parametrize("cell,config,flops", [
+    ("engine", "dynaboa_3dpw", 7_938_244_608),
+    ("cliff", "cliff_hr48_3dpw", 33_804_288_000)])
+def test_dgrad_reader_reads_the_kernels_time(cell, config, flops):
+    """The share: the data-gradient FLOPs of the segment's 103 gradient
+    rows over the summed time of the trace kernels named
+    ``dynaboa_conv_dgrad`` (not the forward kernel's, nor cuDNN's), over
+    67 TFLOP/s; None without them."""
+    cfg = _config(config)
+    reader = _dgrad_reader(cell)
+    kernels = {"void (anonymous namespace)::dynaboa_conv_dgrad<64, 64, "
+               "false>(DgradArgs)": [0.01, 0.02],
+               "void (anonymous namespace)::dynaboa_conv_dgrad<128, 32, "
+               "true>(DgradArgs)": [0.03],
+               "void (anonymous namespace)::dynaboa_conv_fprop<64, 64, "
+               "true>(ConvArgs)": [7.0],
+               "void cudnn::detail::dgrad_engine<float, 512, 6>": [5.0]}
+    r = {"trace": {"kernels": kernels, "updates": [1, 8, 1, 7, 2, 4, 2, 4]}}
+    want = 100.0 * flops * 103 / work.PEAK_FP32_FLOPS / 0.06
+    assert reader.read(r, cfg) == pytest.approx(want, rel=1e-12)
+    for name in [k for k in kernels if "dynaboa_conv_dgrad" in k]:
+        del kernels[name]
+    assert reader.read(r, cfg) is None
+    assert reader.read({"trace": None}, cfg) is None
+    assert reader.read({}, cfg) is None
